@@ -1,7 +1,7 @@
 # Container image for the airspace-tpu CLI (the reference ships a debian
-# multistage Dockerfile for its meson-built C binary; this is the
-# TPU-native analog).  CPU JAX by default — swap the jax extra for the TPU
-# wheel (`jax[tpu]`) when building for TPU hosts.
+# multistage Dockerfile for its meson-built C binary; this is the JAX
+# analog).  CPU JAX by default — swap the jax extra for JAX's CUDA 12
+# plugin (`jax[cuda12]`) when building for NVIDIA GPU hosts (H100).
 FROM python:3.12-slim AS build
 WORKDIR /src
 COPY pyproject.toml README.md ./

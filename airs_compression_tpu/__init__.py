@@ -1,4 +1,4 @@
-"""airs_compression_tpu — TPU-native lossless compression framework.
+"""airs_compression_tpu — JAX lossless compression framework for AIRS data.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the AIRSPACE
 reference library (dloidolt/airs-compression): lossless compression of 16-bit
@@ -9,7 +9,7 @@ coding with escape mechanisms, framed in the AIRSPACE bitstream format
 
 Unlike the reference (a sample-serial ANSI C library), the compute path here
 is batch-first and vectorized: codewords for whole frames are computed in
-closed form on the TPU VPU and bit-packed with prefix-sum arithmetic; blocks
+closed form on the accelerator and bit-packed with shift-and-merge trees; blocks
 are sharded data-parallel over device meshes with ``shard_map``.  This
 package also implements the decoder, which the reference leaves unimplemented
 (reference programs/airspacecli.c:422).

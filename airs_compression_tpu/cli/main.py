@@ -30,7 +30,7 @@ from .params_parse import ParseError, parse_params
 
 AIRSPACE_EXTENSION = ".air"
 
-_WELCOME = "*** AIRSPACE-TPU - AIRS compression, TPU-native ***\n"
+_WELCOME = "*** AIRSPACE-TPU - AIRS compression on JAX ***\n"
 
 
 def _print_usage(stream) -> None:
@@ -91,7 +91,7 @@ _MAX_SINGLE_BLOCK_BYTES = (1 << 24) - 1
 def _use_chunked(samples, params: CmpParams) -> bool:
     if params.secondary_iterations:
         return False  # model chains across files need the one-context path
-    if os.environ.get("AIRS_TPU_CLI_CHUNKED") == "1":
+    if os.environ.get("AIRS_CLI_CHUNKED") == "1":
         return True
     return samples.nbytes > _MAX_SINGLE_BLOCK_BYTES
 
@@ -143,9 +143,9 @@ _DEVICE_DECODE_MIN_BYTES = 4 << 20  # route big streams through the device
 
 
 def _use_chunked_decode(stream: bytes) -> bool:
-    if os.environ.get("AIRS_TPU_CLI_CHUNKED") == "1":
+    if os.environ.get("AIRS_CLI_CHUNKED") == "1":
         return True
-    if os.environ.get("AIRS_TPU_CLI_CHUNKED") == "0":
+    if os.environ.get("AIRS_CLI_CHUNKED") == "0":
         return False
     return len(stream) > _DEVICE_DECODE_MIN_BYTES
 
@@ -165,7 +165,7 @@ def _decompress_files(output_name, input_files) -> int:
 
             if _use_chunked_decode(stream):
                 # batches of uniform blocks decode on device (the header-
-                # driven Pallas decoder); chain-dependent blocks fall back
+                # driven lockstep decoder); chain-dependent blocks fall back
                 # to the host path inside decompress_chunked
                 from ..models.chunked import decompress_chunked
 

@@ -8,7 +8,7 @@ It exists for three purposes:
    (lib/compress/cmp.c, encoder.c, preprocess.c, lib/common/
    bitstream_writer.h) is reproduced here in readable Python/NumPy,
    including error taxonomy, capacity/early-break semantics, model-state
-   side effects, and the uncompressed-fallback dance.  The TPU kernels in
+   side effects, and the uncompressed-fallback dance.  The device kernels in
    ``airs_compression_tpu.ops`` are validated against this module, and this
    module is validated against the reference C library built from source
    (tests/oracle).
@@ -16,7 +16,7 @@ It exists for three purposes:
    JIT/device-transfer overhead.
 3. **Decoder specification** — the reference's CLI prints "Decompression not
    implemented yet" (programs/airspacecli.c:422); the format's decoder is
-   defined here (and vectorized on TPU in ops/decode.py).
+   defined here (and vectorized on device in ops/decode.py).
 
 Encoding is vectorized with NumPy: per-sample (codeword, bitlength) pairs are
 computed in closed form, then concatenated with a logarithmic tree merge of

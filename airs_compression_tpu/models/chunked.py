@@ -3,7 +3,7 @@
 The reference CLI compresses each input file as ONE block through one
 context (programs/airspacecli.c:148-191, programs/file.c:435-488), which
 caps a file at the 2^24-1-byte header field (lib/cmp_header.h:19).  This
-module extends that to arbitrarily large inputs the TPU-native way: the
+module extends that to arbitrarily large inputs the data-parallel way: the
 sample stream is split into fixed-size chunks, each chunk becomes an
 ordinary self-delimiting AIRSPACE block, and batches of chunks are encoded
 in parallel on the device (models/stream.BatchCompressor).  The output is
@@ -34,9 +34,9 @@ from .stream import BatchCompressor
 __all__ = ["compress_chunked", "decompress_chunked",
            "DEFAULT_CHUNK_SAMPLES", "DEFAULT_BATCH"]
 
-# Geometry chosen for the Pallas fast path (ops/pallas_pack.py): the fused
-# VMEM packer wants many lane-aligned blocks of a power-of-two sample
-# count, so a big file becomes LOTS of medium blocks, not a few huge ones.
+# Geometry: the batched device path wants many blocks of a power-of-two
+# sample count, so a big file becomes LOTS of medium blocks, not a few
+# huge ones.
 # 8192 samples/block keeps per-block header overhead at 0.13%; 2048 blocks
 # per device call = 32 MiB packed per launch.
 DEFAULT_CHUNK_SAMPLES = 8192

@@ -1,6 +1,6 @@
 // Native host-side codec core for airs_compression_tpu.
 //
-// The TPU owns the batched data path (ops/); this library is the host
+// The device owns the batched data path (ops/); this library is the host
 // runtime's fast path: the CLI and the host codec use it for scalar
 // encode/pack, sequential Golomb decode, and XXH32 checksums, with a pure
 // Python fallback when the shared library is unavailable.

@@ -1,4 +1,4 @@
-"""Variable-length bit packing via prefix sums — the core TPU kernel.
+"""Variable-length bit packing — the core of the device encoder.
 
 The reference packs codewords through a sequential 64-bit cache
 (lib/common/bitstream_writer.h:124-158).  That formulation is inherently
@@ -17,7 +17,7 @@ serial, so this module re-derives bit packing as a data-parallel problem:
    indices therefore assembles the entire packed stream with no scatter
    and no sequential dependency.
 
-Everything is uint32 (TPU-native); no 64-bit emulation is needed.  The
+Everything is uint32; no 64-bit emulation is needed.  The
 stream is produced MSB-first in big-endian word order, exactly matching
 the reference bitstream format.
 """
@@ -126,12 +126,11 @@ def pack_codes(hi: jax.Array, lo: jax.Array, lens: jax.Array, n_words: int):
 
 
 # ---------------------------------------------------------------------------
-# Doubling-tree packer — the TPU-fast path.
+# Doubling-tree packer — the packer every device path uses.
 #
 # pack_codes above is scatter-free but inversion-heavy: assembling each
-# output word needs searchsorted + gathers, and TPU gathers run at ~100ns
-# per element (measured), which caps it at a few MB/s.  The tree packer
-# below uses only shifts, selects, and concatenations — pure VPU ops:
+# output word needs searchsorted + gathers.  The tree packer below uses
+# only shifts, selects, and concatenations — pure elementwise ops:
 #
 #   * level 0: each code is left-justified in its own C0-word buffer;
 #   * each level pairwise-concatenates adjacent bitstreams:
@@ -139,7 +138,7 @@ def pack_codes(hi: jax.Array, lo: jax.Array, lens: jax.Array, n_words: int):
 #     where the variable word-granular part of the shift (lenA / 32) is
 #     performed as a barrel shifter — log2(C) CONDITIONAL CONSTANT word
 #     shifts — and the bit-granular part (lenA % 32) is one per-row
-#     variable funnel shift (elementwise on the VPU);
+#     variable funnel shift (elementwise);
 #   * capacities grow with the worst-case bit width per level and are
 #     clamped, so buffers track the config's actual entropy bound.
 #
@@ -213,7 +212,7 @@ def _merge_level_list(words, ln, radix: int, C_out):
 
     ``words`` is a list of C uint32 arrays, plane j holding word j of every
     group's buffer; codes/groups live in the (large, lane-mapped) minor
-    array axis, so every operation is a full-width VPU op.
+    array axis, so every operation is a full-width elementwise op.
     """
     C = len(words)
     groups = [[w[..., k::radix] for w in words] for k in range(radix)]
@@ -249,8 +248,8 @@ def merge_streams_tree(words: jax.Array, bits: jax.Array, radix: int = 2):
     left-justified with ``bits[..., m]`` valid bits; the result is their
     in-order bit concatenation — log2(M) pairwise funnel-shift merge
     levels, the same machinery as :func:`pack_codes_tree`'s deep levels.
-    Used to stitch the Pallas packer's per-row streams into one long
-    shard stream (parallel/sp.py).
+    Used to concatenate the B frames of a batch into one packed stream
+    on device (models/stream._pack_stream_device).
 
     Returns (stream (..., M*C) uint32, total_bits (...,) int32).
     """
@@ -278,11 +277,11 @@ def pack_codes_tree(hi: jax.Array, lo: jax.Array, lens: jax.Array,
       (words: uint32 (..., C) left-justified stream, total_bits: int32
       (...,)); C = the static capacity for K codes of worst_bits bits.
 
-    Design (the parts that make this fast on TPU):
+    Design:
     * radix-R merge levels — each level concatenates R adjacent
-      bitstreams (A | B>>lenA | ...).  Radix 2 measures fastest on v5e
-      (radix 4 halves the level count but the extra selects cost more
-      than the traffic saved), so 2 is the default;
+      bitstreams (A | B>>lenA | ...); radix 2 is the default (radix 4
+      halves the level count at the cost of more selects per level —
+      not measured on the GPU);
     * variable shifts decompose into a barrel of log-step conditional
       CONSTANT word shifts plus one per-row funnel — no gather/scatter;
     * two-phase layout: early levels keep each buffer word as its own

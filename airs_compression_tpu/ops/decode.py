@@ -2,11 +2,13 @@
 
 Golomb decoding is inherently bit-serial within a stream (each codeword's
 position depends on all previous lengths), so the device decoder
-parallelizes ACROSS blocks: a ``lax.scan`` over sample steps advances B
-independent bit cursors at once.  Each step is elementwise VPU math —
+parallelizes ACROSS blocks: B independent bit cursors advance in
+lockstep, one codeword per sample step.  Each step is elementwise math —
 count-leading-ones, funnel-shifted 64-bit windows, closed-form Golomb /
-escape handling (inverting encoder.c:303-378) — plus one two-word gather
-per block to refill the window.
+escape handling (inverting encoder.c:303-378) — plus a three-word gather
+per block at its cursor.  The plain-XLA version is a ``lax.scan`` over
+the steps (:func:`decode_blocks_xla`); on the GPU the same math runs as
+one Triton kernel (ops/pallas_decode.py).
 
 The decoded residual stream then runs through the batched inverse
 preprocessors (ops/preprocess.py): wraparound cumsum for DIFF, inverse
@@ -27,7 +29,8 @@ import jax.numpy as jnp
 from . import golomb, preprocess
 from .encode import PassConfig
 
-__all__ = ["decode_blocks_device", "decode_blocks_uncompressed"]
+__all__ = ["decode_blocks_device", "decode_blocks_xla",
+           "decode_blocks_uncompressed"]
 
 _U32 = jnp.uint32
 
@@ -37,42 +40,56 @@ def _clz32(x: jax.Array) -> jax.Array:
     return jnp.where(x == 0, _U32(32), _U32(31) - golomb.ilog2_u32(x))
 
 
+def _shl(x: jax.Array, s) -> jax.Array:
+    """``x << s`` for any int32 ``s``: 0 outside [0, 32).
+
+    XLA defines over-wide shifts as 0; Triton (LLVM) leaves them
+    undefined, so every data-dependent shift amount in the decode math
+    that the GPU kernel shares goes through these two helpers.
+    """
+    s = jnp.asarray(s, jnp.int32)
+    ok = (s >= 0) & (s < 32)
+    return jnp.where(ok, x << jnp.clip(s, 0, 31).astype(_U32), _U32(0))
+
+
+def _shr(x: jax.Array, s) -> jax.Array:
+    """Logical ``x >> s`` for any int32 ``s``: 0 outside [0, 32)."""
+    s = jnp.asarray(s, jnp.int32)
+    ok = (s >= 0) & (s < 32)
+    return jnp.where(ok, x >> jnp.clip(s, 0, 31).astype(_U32), _U32(0))
+
+
+def _funnel64(w0, w1, w2, r):
+    """(hi, lo) of the 64-bit window starting ``r`` in [0, 32) bits into
+    the three consecutive words ``w0, w1, w2``."""
+    return _shl(w0, r) | _shr(w1, 32 - r), _shl(w1, r) | _shr(w2, 32 - r)
+
+
 def _window64(words: jax.Array, bitpos: jax.Array):
     """(hi, lo) 64-bit window starting at ``bitpos`` for each block.
 
     ``words`` is (B, W) uint32; ``bitpos`` is (B,) int32.  Three words are
-    gathered per block and funnel-shifted so the window's MSB is the bit
-    at ``bitpos``.
+    gathered per block (indices clipped into the row) and funnel-shifted
+    so the window's MSB is the bit at ``bitpos``.
     """
     W = words.shape[-1]
     wi = bitpos >> 5
-    r = (bitpos & 31).astype(_U32)
 
     def take(i):
         idx = jnp.clip(i, 0, W - 1)[..., None]
         return jnp.take_along_axis(words, idx, axis=-1)[..., 0]
 
-    w0, w1, w2 = take(wi), take(wi + 1), take(wi + 2)
-    rs = jnp.where(r == 0, _U32(0), _U32(32) - r)
-    sh = lambda a, b: jnp.where(r == 0, a, (a << r) | jnp.where(
-        rs == 0, _U32(0), b >> rs))
-    return sh(w0, w1), sh(w1, w2)
+    return _funnel64(take(wi), take(wi + 1), take(wi + 2), bitpos & 31)
 
 
 def _take_bits(hi: jax.Array, lo: jax.Array, start, count):
     """Extract ``count`` bits of the 64-bit window starting at ``start``
     (MSB-relative); count in [0, 32].  All operands per-lane dynamic."""
     # value = (window << start) >> (64 - count), in u32 pieces
-    s = start.astype(_U32)
-    rs = jnp.where(s == 0, _U32(0), _U32(32) - s)
-    top = jnp.where(s == 0, hi,
-                    jnp.where(s >= 32,
-                              lo << jnp.where(s >= 32, s - _U32(32), _U32(0)),
-                              (hi << s) | jnp.where(rs == 0, _U32(0),
-                                                    lo >> rs)))
-    c = count.astype(_U32)
-    return jnp.where(c == 0, _U32(0),
-                     top >> jnp.where(c == 0, _U32(0), _U32(32) - c))
+    s = jnp.asarray(start, jnp.int32)
+    top = jnp.where(s < 32, _shl(hi, s) | _shr(lo, 32 - s),
+                    _shl(lo, s - 32))
+    return _shr(top, 32 - jnp.asarray(count, jnp.int32))
 
 
 def _golomb_terms(cfg: PassConfig, g_dyn=None, outlier_dyn=None):
@@ -195,21 +212,28 @@ def decode_blocks_device(cfg: PassConfig, words: jax.Array, model: jax.Array,
     ``model`` is consulted only for MODEL preprocessing.
     Returns (samples (B, N) int32 sign-extended i16, end_bitpos (B,) i32).
 
-    On TPU every batch routes through the Pallas slab-pyramid decoder
-    (ops/pallas_decode.py, ~200x faster; small batches are padded to its
-    1024-block tile internally); the XLA scan below is the reference path
-    for CPU.
+    On the GPU every batch routes through the Triton kernel
+    (ops/pallas_decode.py), which runs the whole sample loop in one
+    launch; elsewhere through :func:`decode_blocks_xla`, the plain
+    reference.
     """
-    import os
+    from . import routing
 
-    B = words.shape[0]
-    mode = os.environ.get("AIRS_TPU_DECODER", "auto")
-    if (mode != "xla"
-            and (mode == "pallas" or jax.default_backend() != "cpu")):
-        from .pallas_decode import decode_blocks_pallas
+    if routing.decode_path(routing.platform()) == "triton":
+        from .pallas_decode import decode_blocks_triton
 
-        return decode_blocks_pallas(cfg, words, model, n_samples,
+        return decode_blocks_triton(cfg, words, model, n_samples,
                                     g_dyn=g_dyn, outlier_dyn=outlier_dyn)
+    return decode_blocks_xla(cfg, words, model, n_samples, g_dyn=g_dyn,
+                             outlier_dyn=outlier_dyn)
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "n_samples"))
+def decode_blocks_xla(cfg: PassConfig, words: jax.Array, model: jax.Array,
+                      n_samples: int, g_dyn=None, outlier_dyn=None):
+    """Plain-XLA lockstep decoder (``decode_blocks_device`` contract): a
+    ``lax.scan`` over the N sample steps, all B cursors advanced at once."""
+    B = words.shape[0]
     init = (jnp.full((B,), cfg.hdr_bits, jnp.int32),
             jnp.zeros((B,), bool))
 

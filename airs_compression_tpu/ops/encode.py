@@ -3,10 +3,10 @@
 One call encodes a whole batch of blocks (B, N) into complete AIRSPACE
 frames (header + payload [+ checksum]) as big-endian 32-bit word streams,
 entirely on device.  Differences from the reference engine
-(lib/compress/cmp.c:213-338) that make it TPU-native:
+(lib/compress/cmp.c:213-338) that make it data-parallel:
 
 * The per-sample loop with two indirect calls becomes three fused
-  vectorized stages on the VPU (ops/preprocess, ops/golomb, ops/bitpack).
+  elementwise stages (ops/preprocess, ops/golomb, ops/bitpack).
 * The reference writes a placeholder header, encodes, then rewinds to patch
   ``compressed_size`` (cmp.c:321-334).  Here the bit lengths are known
   before packing, so the final header is assembled up front and the whole
@@ -33,29 +33,10 @@ import functools
 import jax
 import jax.numpy as jnp
 
-import os
-
 from ..format.header import CMP_VERSION_NUMBER
 from ..format.params import CmpParams, EncoderType, Preprocessing
 from ..utils.bits import derive_encoder_outlier
-from . import bitpack, golomb, pallas_pack, preprocess
-
-
-def _use_pallas(B: int, K: int, worst_bits: int) -> bool:
-    """Route packing through the VMEM-resident Pallas kernel on TPU.
-
-    The decision is made at trace time (static shapes/config).  Override
-    with AIRS_TPU_PACKER=xla|pallas; CPU always uses the XLA tree (tests
-    exercise the Pallas kernels explicitly via ``interpret=True``).
-    """
-    mode = os.environ.get("AIRS_TPU_PACKER", "auto")
-    if mode == "xla":
-        return False
-    if not pallas_pack.pallas_pack_supported(B, K, worst_bits):
-        return False
-    if mode == "pallas":
-        return True
-    return jax.default_backend() != "cpu"
+from . import bitpack, golomb, preprocess
 
 __all__ = ["PassConfig", "make_pass_config", "encode_blocks_device", "worst_case_words"]
 
@@ -117,19 +98,13 @@ def make_pass_config(params: CmpParams, secondary: bool,
 
 
 def default_cap_bits(cfg: PassConfig) -> "int | None":
-    """Default entropy clamp for the Pallas packer under ``cfg``.
+    """Default entropy clamp (bits per code) for frame buffers under ``cfg``.
 
     Policy: half the worst-case code length (floor 8 bits/code) — several
     times the entropy of typical detector residuals, so overflows (which
-    cost a transparent full-capacity re-encode) are rare, while the deep
-    tree levels shrink ~2x.  ``AIRS_TPU_PACK_CAP`` overrides: ``off``
-    disables clamping, an integer forces that cap.
+    cost a transparent full-capacity re-encode) are rare, while the frame
+    buffer the host fetches shrinks ~2x (:func:`clamped_frame_words`).
     """
-    mode = os.environ.get("AIRS_TPU_PACK_CAP", "auto")
-    if mode == "off":
-        return None
-    if mode not in ("", "auto"):
-        return int(mode)
     if cfg.enc_type == int(EncoderType.UNCOMPRESSED):
         return None
     if cfg.enc_type == int(EncoderType.GOLOMB_MULTI):
@@ -137,7 +112,7 @@ def default_cap_bits(cfg: PassConfig) -> "int | None":
         # a MULTI normal code is the same Golomb family as ZERO's, so the
         # budget derives from the equivalent ZERO width; escape-heavy
         # blocks overflow the clamp and transparently re-encode at full
-        # capacity (the narrow-path flag covers >32-bit codes too)
+        # capacity
         zero_like = (int(cfg.g_par).bit_length() - 1) + 1 + 16
         return max(8, zero_like // 2 - 1)
     return max(8, cfg.worst_bits_per_sample // 2 - 1)
@@ -149,23 +124,38 @@ def worst_case_words(cfg: PassConfig, n: int) -> int:
     return (bits + 31) // 32 + 1
 
 
-def clamped_frame_words(cfg: PassConfig, n: int, cap_bits: "int | None") -> int:
-    """Frame capacity (words) when packing under an entropy clamp.
+# Entropy-clamp slack: a clamped payload budget is cap_bits per code plus
+# this many bits, covering a handful of near-worst codes in one block.
+_CAP_FLOOR_BITS = 64
 
-    With ``cap_bits`` set the payload the Pallas packer can emit is bounded
-    by its root node's clamped capacity (pallas_pack._node_cap_words at
-    m = K), so the frame buffer only needs that plus header/padding/
-    checksum — typically ~2.4x smaller than :func:`worst_case_words`.
-    Blocks whose data exceeds the clamp are flagged ``ok=False`` by the
-    encoder and must be re-encoded at full capacity (exactly the contract
-    the clamp already has).
+
+def clamped_payload_words(worst_bits: int, cap_bits: "int | None",
+                          n: int) -> int:
+    """Payload words a frame buffer holds for n codes under the clamp.
+
+    Unclamped: the worst case n * worst_bits.  Clamped: a linear entropy
+    budget cap_bits * n plus a fixed floor, with n rounded up to the
+    packer's power-of-two code count.
+    """
+    K = max(16, 1 << max(n - 1, 0).bit_length())
+    bits = worst_bits * K
+    if cap_bits is not None:
+        bits = min(bits, _CAP_FLOOR_BITS + cap_bits * K)
+    return (bits + 31) // 32
+
+
+def clamped_frame_words(cfg: PassConfig, n: int, cap_bits: "int | None") -> int:
+    """Frame capacity (words) under an entropy clamp.
+
+    The frame buffer only needs the clamped payload plus header/padding/
+    checksum — typically ~2.4x smaller than :func:`worst_case_words`, and
+    the host fetches the whole buffer for its row gather.  Frames whose
+    data exceeds the clamp are flagged ``ok=False`` by the encoder and
+    must be re-encoded at full capacity.
     """
     if cap_bits is None:
         return worst_case_words(cfg, n)
-    from . import pallas_pack
-
-    c_payload = pallas_pack.clamped_payload_words(
-        cfg.worst_bits_per_sample, cap_bits, n)
+    c_payload = clamped_payload_words(cfg.worst_bits_per_sample, cap_bits, n)
     words = (cfg.hdr_bits + 31) // 32 + c_payload + 3  # tail + checksum slack
     return min(words, worst_case_words(cfg, n))
 
@@ -219,10 +209,10 @@ def _encode_one_pass(cfg: PassConfig, x: jax.Array, model: jax.Array,
     selects and concatenations — no gather/scatter.
 
     Returns (words (B, n_words) u32, size_bytes (B,) i32); with
-    ``cap_bits`` set (entropy-clamped Pallas packing) additionally a
-    (B,) bool ``ok`` — False marks blocks whose payload overflowed the
-    clamped buffers and must be re-encoded at full capacity (their
-    ``size_bytes`` are exact regardless).
+    ``cap_bits`` set (entropy-clamped ``n_words``) additionally a (B,)
+    bool ``ok`` — False marks blocks whose frame did not fit the buffer
+    and must be re-encoded at full capacity (their ``size_bytes`` are
+    exact regardless).
     """
     B, N = x.shape
     residuals = preprocess.preprocess_forward(
@@ -241,21 +231,6 @@ def _encode_one_pass(cfg: PassConfig, x: jax.Array, model: jax.Array,
         # ok = frame actually fit the (possibly clamped) buffer; assembly
         # truncates at n_words, so an oversized frame must be flagged
         return out if cap_bits is None else out + (out[1] <= n_words * 4,)
-    if N & (N - 1) == 0 and _use_pallas(B, N, wb):
-        # fused TPU fast path: codeword gen + pack in one VMEM kernel
-        ok = None
-        if cap_bits is not None:
-            payload, payload_bits, ok = pallas_pack.pack_residuals_pallas(
-                residuals, cfg.enc_type, cfg.g_par, cfg.outlier, wb,
-                cap_bits=cap_bits, narrow=wb > 32)
-        else:
-            payload, payload_bits = pallas_pack.pack_residuals_pallas(
-                residuals, cfg.enc_type, cfg.g_par, cfg.outlier, wb)
-        out = _assemble_frames(cfg, payload, payload_bits, N, seq, id_hi,
-                               id_lo, checksum, n_words)
-        if cap_bits is not None:
-            out = out + (ok & (out[1] <= n_words * 4),)
-        return out
     hi, lo, lens = golomb.encode_codewords(residuals, cfg.enc_type,
                                            cfg.g_par, cfg.outlier)
     out = _finish_frames(cfg, hi, lo, lens, seq, id_hi, id_lo, checksum,
@@ -270,11 +245,9 @@ def _finish_frames(cfg: PassConfig, hi, lo, lens, seq, id_hi, id_lo,
     """Pack + frame assembly shared by the static and adaptive encoders.
 
     Always returns (words, sizes, ok).  With ``cap_bits`` set (clamped
-    frame buffers), ok is False for any block whose payload overflowed a
-    clamped Pallas node OR whose assembled frame exceeds ``n_words`` —
-    the latter covers the XLA-packer path, where frames are truncated at
-    ``n_words`` by ``_assemble_frames`` and would otherwise be reported
-    corrupt-but-ok.
+    frame buffers), ok is False for any block whose assembled frame
+    exceeds ``n_words``: ``_assemble_frames`` truncates frames there, and
+    they would otherwise be reported corrupt-but-ok.
     """
     B, N = lens.shape
     # pad the code count to a power of two with zero-length codes
@@ -285,23 +258,11 @@ def _finish_frames(cfg: PassConfig, hi, lo, lens, seq, id_hi, id_lo,
         lo = jnp.concatenate([lo, padw], axis=-1)
         lens = jnp.concatenate([lens, jnp.zeros((B, K - N), jnp.int32)],
                                axis=-1)
-    ok = jnp.ones((B,), bool)
-    if _use_pallas(B, K, worst_bits):
-        if cap_bits is not None:
-            payload, payload_bits, ok = pallas_pack.pack_codes_tree_pallas(
-                hi, lo, lens, worst_bits, cap_bits=cap_bits,
-                narrow=worst_bits > 32)
-        else:
-            payload, payload_bits = pallas_pack.pack_codes_tree_pallas(
-                hi, lo, lens, worst_bits)
-    else:
-        payload, payload_bits = bitpack.pack_codes_tree(hi, lo, lens,
-                                                        worst_bits)
+    payload, payload_bits = bitpack.pack_codes_tree(hi, lo, lens, worst_bits)
     words, sizes = _assemble_frames(cfg, payload, payload_bits, N, seq,
                                     id_hi, id_lo, checksum, n_words,
                                     enc_param_dyn, outlier_dyn)
-    if cap_bits is not None:
-        ok = ok & (sizes <= n_words * 4)
+    ok = jnp.ones((B,), bool) if cap_bits is None else sizes <= n_words * 4
     return words, sizes, ok
 
 
@@ -375,9 +336,10 @@ def encode_blocks_device(cfg: PassConfig, fallback_cfg, x: jax.Array,
       id_hi, id_lo: (B,) uint32 identifier halves (bits 47..24 / 23..0).
       checksum: (B,) uint32 XXH32 values (zeros when disabled).
       n_words: static output word capacity.
-      cap_bits: optional entropy clamp for the Pallas packer (see
-        ops/pallas_pack.py) — adds a fourth ``pack_ok`` (B,) bool output;
-        re-encode blocks with ``pack_ok == False`` at full capacity.
+      cap_bits: entropy clamp that sized ``n_words`` (see
+        :func:`clamped_frame_words`) — adds a fourth ``pack_ok`` (B,) bool
+        output; re-encode blocks with ``pack_ok == False`` at full
+        capacity.
 
     Returns:
       words (B, n_words) u32 big-endian frames, sizes (B,) i32,
@@ -467,9 +429,9 @@ def encode_blocks_adaptive(cfg: PassConfig, fallback_cfg, x: jax.Array,
     (probe criterion cmp.c:362-372, reduced to a size comparison).
 
     Returns (words, sizes, fell_back (B,) bool, g_selected (B,) int32,
-    ok (B,) bool).  ``cap_bits`` entropy-clamps the Pallas pack exactly
-    as in the fixed-rate engine (ok=False blocks must re-encode at full
-    capacity); without it ok is all-True.
+    ok (B,) bool).  ``cap_bits`` marks ``n_words`` as entropy-clamped
+    exactly as in the fixed-rate engine (ok=False blocks must re-encode
+    at full capacity); without it ok is all-True.
     """
     from . import adapt
 
@@ -519,8 +481,9 @@ def encode_blocks_adaptive(cfg: PassConfig, fallback_cfg, x: jax.Array,
             jnp.any(fell_back), _mk_fb, _mk_none, (x, model, seq))
         words = jnp.where(fell_back[:, None], fb_words, words)
         sizes = jnp.where(fell_back, fb_sizes, sizes)
-        # a fallback frame always fits n_words (16-bit fixed codes)
-        ok = ok | fell_back
+        # a fallback block is served by the uncompressed frame: it is ok
+        # exactly when that frame fits the (possibly clamped) buffer
+        ok = jnp.where(fell_back, unc_size <= n_words * 4, ok)
     else:
         fell_back = jnp.zeros((B,), bool)
     return words, sizes, fell_back, g_sel.astype(jnp.int32), ok
@@ -538,12 +501,7 @@ def adaptive_cap_bits(cfg: PassConfig,
     """Entropy clamp for the adaptive tier (same policy as
     default_cap_bits: half the common-class worst, floor 8; MULTI
     derives from the ladder's Golomb class, its 48-bit escapes take the
-    narrow re-encode path)."""
-    mode = os.environ.get("AIRS_TPU_PACK_CAP", "auto")
-    if mode == "off":
-        return None
-    if mode not in ("", "auto"):
-        return int(mode)
+    full-capacity re-encode)."""
     zero_like = int(max(ladder)).bit_length() - 1 + 17
     return max(8, zero_like // 2 - 1)
 

@@ -1,7 +1,7 @@
-"""Closed-form Golomb codeword generation on the VPU.
+"""Closed-form Golomb codeword generation, elementwise on device.
 
 The reference encodes one sample at a time through a branchy scalar routine
-(lib/compress/encoder.c:303-378).  On TPU every sample's codeword is a
+(lib/compress/encoder.c:303-378).  Here every sample's codeword is a
 closed-form elementwise function of the zigzag-mapped value, so a whole
 batch of blocks is computed at once: for each sample we produce a
 (hi, lo, len) triple — the codeword's up-to-48 bits split across two uint32
@@ -69,8 +69,7 @@ def golomb_codeword(v: jax.Array, g_par: int, g_log2: int):
     vg = jnp.where(in_g0, _U32(0), v - _U32(cutoff))
     group = (vg // _U32(g_par)).astype(_U32)  # static divisor -> mul/shift
     rem = vg - group * _U32(g_par)
-    # min on int32: group <= 65535 so the cast is lossless (Mosaic has no
-    # unsigned vector min)
+    # min on int32: group <= 65535 so the cast is lossless
     gclamp = jnp.minimum(group.astype(jnp.int32), 31).astype(_U32)
     unary = jnp.where(group >= _U32(32), _U32(0xFFFFFFFF),
                       (_U32(1) << gclamp) - _U32(1))

@@ -1,9 +1,9 @@
 """Batched on-device preprocessing kernels (forward + inverse).
 
-TPU-first re-design of the reference's sample-serial preprocessors
+Data-parallel re-design of the reference's sample-serial preprocessors
 (lib/compress/preprocess.c): every method operates on whole batches of
 blocks at once, shaped ``(B, N)`` int32 (16-bit sample values,
-sign-extended), on the VPU:
+sign-extended), elementwise on device:
 
 * DIFF   — shifted wraparound subtract (reference diff_process,
   preprocess.c:284-290); inverse is a wraparound cumulative sum.

@@ -9,12 +9,13 @@ per-block checksums are independent, so here B blocks hash at once:
 * XXH32's only cross-word dependency is its 4-lane accumulator recurrence
   ``acc = rotl13(acc + w * P2) * P1`` over 16-byte stripes — strictly
   sequential along the stripe axis but elementwise across (block, lane),
-  i.e. a (B, 4)-wide chain of N/8 cheap VPU steps.
-* :func:`xxh32_blocks` runs that chain as a ``lax.scan`` (any backend).
-* :func:`xxh32_blocks_pallas` streams the stripes through VMEM with the
-  accumulators held in an (4, 8, 128) register tile — 1024 blocks per
-  grid tile, stripe chunks as the inner grid axis so one scratch
-  accumulator persists across chunks (no HBM round-trips for state).
+  i.e. a (B, 4)-wide chain of N/8 cheap elementwise steps.
+* :func:`xxh32_blocks` runs that chain as a ``lax.scan`` (any backend);
+  on a GPU each stripe step costs at least one kernel launch.
+* :func:`xxh32_blocks_triton` runs it as one GPU kernel (Pallas, Triton
+  route): one thread per block, the stripe loop inside the kernel and
+  the 4 accumulators in registers; each stripe loads the block's 8
+  samples (one 32-byte sector) straight from the (B, N) sample array.
 
 Both are bit-exact against utils/xxh32 (itself pinned to the vendored
 xxhash 0.8.3 the reference uses, subprojects/xxhash.wrap:1-14).
@@ -33,8 +34,8 @@ import jax.numpy as jnp
 
 from ..utils.xxh32 import CHECKSUM_SEED
 
-__all__ = ["xxh32_blocks", "xxh32_blocks_pallas", "pallas_xxh32_supported",
-           "checksum_blocks_device"]
+__all__ = ["xxh32_blocks", "xxh32_blocks_triton", "triton_xxh32_supported",
+           "checksum_blocks_device", "use_device_checksum"]
 
 _U32 = jnp.uint32
 _P1 = 2654435761
@@ -43,9 +44,8 @@ _P3 = 3266489917
 _P4 = 668265263
 _P5 = 374761393
 
-_LANES = 128
-_SUB = 8
-_TILE = _SUB * _LANES
+LANES = 32    # blocks per program: one warp, one lane per block
+_UNROLL = 8   # stripes per loop iteration (loads issued ahead of the chain)
 
 
 def _rotl(x, r: int):
@@ -115,124 +115,82 @@ def xxh32_blocks(x: jax.Array, seed: int = CHECKSUM_SEED) -> jax.Array:
     return _finalize(h)
 
 
-_UNROLL = 32  # stripes per loop step: amortizes fori_loop overhead over
-              # the (irreducible) serial accumulator chain
+def _bswap16(s):
+    return ((s & _U32(0xFF)) << _U32(8)) | ((s >> _U32(8)) & _U32(0xFF))
 
 
-def _xxh_kernel(n_chunks: int, chunk: int, seed: int, w_ref, out_ref,
-                acc_ref):
+def _xxh_kernel(N: int, B: int, seed: int, x_ref, out_ref):
     from jax.experimental import pallas as pl
 
-    c = pl.program_id(1)
+    base = pl.program_id(0) * LANES
+    row = jnp.minimum(base + jnp.arange(LANES, dtype=jnp.int32), B - 1) * N
+    n_stripes = N // 8
+    u = _UNROLL if n_stripes % _UNROLL == 0 else 1
 
-    @pl.when(c == 0)
-    def _():
-        acc_ref[0] = jnp.full((_SUB, _LANES), (seed + _P1 + _P2) & 0xFFFFFFFF,
-                              _U32)
-        acc_ref[1] = jnp.full((_SUB, _LANES), (seed + _P2) & 0xFFFFFFFF, _U32)
-        acc_ref[2] = jnp.full((_SUB, _LANES), seed & 0xFFFFFFFF, _U32)
-        acc_ref[3] = jnp.full((_SUB, _LANES), (seed - _P1) & 0xFFFFFFFF, _U32)
+    def stripe(s, acc):
+        sw = [_bswap16(x_ref[row + (8 * s + j)].astype(_U32))
+              for j in range(8)]
+        return tuple(
+            _rotl(a + (sw[2 * k] | (sw[2 * k + 1] << _U32(16)))
+                  * _U32(_P2), 13) * _U32(_P1)
+            for k, a in enumerate(acc))
 
-    u = _UNROLL if chunk % _UNROLL == 0 else 1
-
-    def body(i, _):
-        acc = acc_ref[:]
+    def body(i, acc):
         for k in range(u):
-            w = w_ref[0, 0, i * u + k]  # (4, SUB, LANES)
-            acc = _rotl(acc + w * _U32(_P2), 13) * _U32(_P1)
-        acc_ref[:] = acc
-        return 0
+            acc = stripe(i * u + k, acc)
+        return acc
 
-    jax.lax.fori_loop(0, chunk // u, body, 0)
-
-    @pl.when(c == n_chunks - 1)
-    def _():
-        h = (_rotl(acc_ref[0], 1) + _rotl(acc_ref[1], 7)
-             + _rotl(acc_ref[2], 12) + _rotl(acc_ref[3], 18))
-        out_ref[0] = h[None]
+    init = tuple(jnp.full((LANES,), v & 0xFFFFFFFF, _U32)
+                 for v in (seed + _P1 + _P2, seed + _P2, seed, seed - _P1))
+    a = jax.lax.fori_loop(0, n_stripes // u, body, init)
+    out_ref[pl.ds(base, LANES)] = (_rotl(a[0], 1) + _rotl(a[1], 7)
+                                   + _rotl(a[2], 12) + _rotl(a[3], 18))
 
 
-def pallas_xxh32_supported(N: int) -> bool:
-    """The streaming kernel needs whole stripes: 2N % 16 == 0."""
+def triton_xxh32_supported(N: int) -> bool:
+    """The kernel needs whole 16-byte stripes: 2N % 16 == 0."""
     return N >= 8 and N % 8 == 0
 
 
 @functools.partial(jax.jit, static_argnames=("seed", "interpret"))
-def xxh32_blocks_pallas(x: jax.Array, seed: int = CHECKSUM_SEED,
+def xxh32_blocks_triton(x: jax.Array, seed: int = CHECKSUM_SEED,
                         interpret: bool = False) -> jax.Array:
-    """TPU streaming XXH32: (B, N) samples -> (B,) u32, N % 8 == 0.
-
-    1024 blocks per tile; the stripe axis is the inner grid dimension so
-    the 4 accumulators live in one VMEM scratch across chunks.  The
-    stripe-major relayout is one XLA transpose (a single HBM pass).
-    """
+    """GPU XXH32: (B, N) samples -> (B,) u32, N % 8 == 0, any B >= 1."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     B, N = x.shape
-    assert pallas_xxh32_supported(N), "needs whole 16-byte stripes"
-    n_stripes = N // 8
-    # chunk: inner-grid stripe count; divides n_stripes, VMEM-friendly
-    chunk = n_stripes
-    while chunk > 256:
-        if chunk % 2:
-            break
-        chunk //= 2
-    n_chunks = n_stripes // chunk
-
-    B_pad = -(-B // _TILE) * _TILE
-    if B_pad != B:
-        x = jnp.concatenate(
-            [x, jnp.zeros((B_pad - B, N), x.dtype)], axis=0)
-    tiles = B_pad // _TILE
-
-    w = _lane_words(x)  # (B_pad, 4 * n_stripes)
-    # [tile, chunk, stripe, k, sub, lane] <- w[b, 4*(chunk*Cs+stripe)+k]
-    wt = (w.reshape(tiles, _SUB, _LANES, n_chunks, chunk * 4)
-           .transpose(0, 3, 4, 1, 2)
-           .reshape(tiles, n_chunks, chunk, 4, _SUB, _LANES))
-
-    out = pl.pallas_call(
-        functools.partial(_xxh_kernel, n_chunks, chunk, seed),
-        grid=(tiles, n_chunks),
-        out_shape=jax.ShapeDtypeStruct((tiles, 1, _SUB, _LANES), _U32),
-        in_specs=[pl.BlockSpec((1, 1, chunk, 4, _SUB, _LANES),
-                               lambda i, c: (i, c, 0, 0, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 1, _SUB, _LANES),
-                               lambda i, c: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((4, _SUB, _LANES), _U32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+    assert triton_xxh32_supported(N), "needs whole 16-byte stripes"
+    assert B * N < 2 ** 31, "flat sample index must fit int32"
+    B_pad = -(-B // LANES) * LANES
+    h = pl.pallas_call(
+        functools.partial(_xxh_kernel, N, B, seed),
+        out_shape=jax.ShapeDtypeStruct((B_pad,), _U32),
+        grid=(B_pad // LANES,),
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(wt)
-    h = out.reshape(B_pad)[:B] + _U32(2 * N)
-    return _finalize(h)
+        name="airs_xxh32",
+    )(x.astype(jnp.int32).reshape(-1))
+    return _finalize(h[:B] + _U32(2 * N))
 
 
-def use_device_checksum() -> bool:
-    """Should checksums route through the device implementations?
+def use_device_checksum(n_samples: int) -> bool:
+    """Should checksums of N-sample blocks be computed on the device?
 
-    True on any non-CPU backend; ``AIRS_TPU_XXH32=xla|pallas`` forces it
-    on CPU too (tests exercise the device path there).  The single
-    routing predicate for every caller (BatchCompressor, chunked
-    decompress verification).
+    The single routing predicate for every caller (BatchCompressor,
+    BatchDecompressor, chunked decompress verification); see
+    ops/routing.checksum_path.
     """
-    import os
+    from . import routing
 
-    if os.environ.get("AIRS_TPU_XXH32") in ("xla", "pallas"):
-        return True
-    return jax.default_backend() != "cpu"
+    return routing.checksum_path(routing.platform(), n_samples) != "host"
 
 
 def checksum_blocks_device(x: jax.Array) -> jax.Array:
-    """AIRSPACE per-block checksum on the best available device path."""
-    import os
+    """AIRSPACE per-block checksum on the routed device path."""
+    from . import routing
 
-    mode = os.environ.get("AIRS_TPU_XXH32", "auto")
-    on_tpu = jax.default_backend() != "cpu"
-    if (mode != "xla" and pallas_xxh32_supported(x.shape[-1])
-            and (mode == "pallas" or on_tpu)):
-        return xxh32_blocks_pallas(x)
+    if routing.checksum_path(routing.platform(), x.shape[-1]) == "triton":
+        return xxh32_blocks_triton(x)
     return xxh32_blocks(x)

@@ -13,6 +13,8 @@ device across calls — the "optimizer state" of this workload.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -20,7 +22,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..ops.encode import PassConfig, encode_blocks_device, model_update_step
 
 __all__ = ["encode_blocks_sharded", "decode_blocks_sharded",
-           "place_encode_operands", "ShardedBatchState"]
+           "checksum_blocks_sharded", "place_encode_operands",
+           "ShardedBatchState"]
 
 
 def place_encode_operands(mesh: Mesh, x, model, seq, id_hi, id_lo,
@@ -31,8 +34,7 @@ def place_encode_operands(mesh: Mesh, x, model, seq, id_hi, id_lo,
     ``encode_blocks_device`` calls.  Steady-state pipelines (and the
     scaling benchmark) keep data device-resident across calls — the
     per-call ``jax.device_put`` inside :func:`encode_blocks_sharded` is
-    placement cost, not sharded-path cost (round-3 verdict Weak #4
-    measured it as a fake scaling cliff).
+    placement cost, not sharded-path cost.
     """
     shard_bn = NamedSharding(mesh, P(axis_name, None))
     shard_b = NamedSharding(mesh, P(axis_name))
@@ -75,21 +77,45 @@ def decode_blocks_sharded(mesh: Mesh, cfg: PassConfig, words, model,
     stream but blocks are independent, so DP is the decode-side scaling
     axis; reference-format consequence, SURVEY §2.5).  Per-lane
     ``g_dyn``/``outlier_dyn`` shard with the blocks (header-driven
-    adaptive streams decode data-parallel too).
+    adaptive streams decode data-parallel too).  The decode runs under
+    ``shard_map``: the GPU kernel is an opaque custom call that XLA's
+    partitioner cannot split, so each device calls it on its own shard.
     """
     from ..ops.decode import decode_blocks_device
 
     shard_bn = NamedSharding(mesh, P(axis_name, None))
     shard_b = NamedSharding(mesh, P(axis_name))
+    dynamic = g_dyn is not None
+    args = [jax.device_put(words, shard_bn), jax.device_put(model, shard_bn)]
+    if dynamic:
+        if outlier_dyn is None:
+            outlier_dyn = jnp.full((words.shape[0],), cfg.outlier,
+                                   jnp.uint32)
+        args += [jax.device_put(jnp.asarray(g_dyn), shard_b),
+                 jax.device_put(jnp.asarray(outlier_dyn), shard_b)]
+    specs = (P(axis_name, None), P(axis_name, None)) \
+        + (P(axis_name), P(axis_name)) * dynamic
 
-    words = jax.device_put(words, shard_bn)
-    model = jax.device_put(model, shard_bn)
-    if g_dyn is not None:
-        g_dyn = jax.device_put(jnp.asarray(g_dyn), shard_b)
-    if outlier_dyn is not None:
-        outlier_dyn = jax.device_put(jnp.asarray(outlier_dyn), shard_b)
-    return decode_blocks_device(cfg, words, model, n_samples,
-                                g_dyn=g_dyn, outlier_dyn=outlier_dyn)
+    @jax.jit
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=specs,
+                       out_specs=(P(axis_name, None), P(axis_name)),
+                       check_vma=False)
+    def run(w, m, *par):
+        return decode_blocks_device(cfg, w, m, n_samples, *par)
+
+    return run(*args)
+
+
+def checksum_blocks_sharded(mesh: Mesh, x, axis_name: str = "dp"):
+    """Per-block XXH32 of (B, N) samples, block-axis sharded: each device
+    hashes its own blocks on the routed device path (shard_map, as in
+    :func:`decode_blocks_sharded`)."""
+    from ..ops.xxh32_device import checksum_blocks_device
+
+    run = jax.jit(jax.shard_map(
+        checksum_blocks_device, mesh=mesh, in_specs=P(axis_name, None),
+        out_specs=P(axis_name), check_vma=False))
+    return run(jax.device_put(x, NamedSharding(mesh, P(axis_name, None))))
 
 
 class ShardedBatchState:

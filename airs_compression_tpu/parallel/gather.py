@@ -7,7 +7,7 @@ deterministic stream order — block index order (SURVEY §2.5/§5).
 Single-process multi-device: the encoder's fixed-capacity word buffers and
 sizes are already globally addressable; assembly is host-side slicing.
 Multi-host: each host holds its shard of the block axis; sizes travel
-through ``multihost_utils.process_allgather`` (DCN), then every host (or
+through ``multihost_utils.process_allgather`` (the host network), then every host (or
 just host 0) assembles its portion and rank-orders the result.  Payload
 bytes move host-to-host only when a single output file is required — the
 normal production path writes per-host shards with a manifest instead.

@@ -5,7 +5,7 @@ optional ``sp`` (sequence/stream-parallel) axis for splitting one very long
 sample stream across chips (the codec's analog of context parallelism; see
 parallel/sp.py).  The reference is strictly single-threaded single-process
 (SURVEY §2.5); distribution here is a new capability designed around XLA
-collectives over ICI.
+collectives (NCCL over NVLink between the GPUs of one host).
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ def block_sharding(mesh: Mesh, axis_name: str = "dp") -> NamedSharding:
 def multihost_initialize(**kwargs) -> None:
     """Initialize the multi-host runtime (jax.distributed).
 
-    On a pod slice every host runs the same program; collectives ride ICI
-    within the slice and DCN across slices.  No-op if already initialized.
+    Every host runs the same program; collectives ride NVLink between
+    the GPUs of one host and the network between hosts.  No-op if
+    already initialized.
     """
     try:
         jax.distributed.initialize(**kwargs)

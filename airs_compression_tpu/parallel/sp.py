@@ -2,7 +2,8 @@
 
 The codec's analog of sequence/context parallelism (SURVEY §2.5): a single
 AIRSPACE block too large for one chip's comfort is split along the sample
-axis over the mesh.  Communication pattern (all over ICI):
+axis over the mesh.  Communication pattern (XLA collectives; NCCL over
+NVLink between the GPUs of one host):
 
 * DIFF preprocessing needs a 1-sample halo — the previous shard's last
   sample — exchanged with ``ppermute``.
@@ -17,7 +18,8 @@ axis over the mesh.  Communication pattern (all over ICI):
 * Per-shard codeword bit lengths are ``all_gather``-ed to derive each
   shard's absolute bit offset in the single payload (an exclusive scan of
   D scalars).
-* Each shard bit-packs locally at offset 0, then funnel-shifts its word
+* Each shard bit-packs locally at offset 0 (ops/bitpack.pack_codes_tree),
+  then funnel-shifts its word
   stream by (offset mod 32): the result lands on the global 32-bit word
   grid starting at word offset/32.  Adjacent shards overlap in exactly one
   boundary word, OR-merged during assembly.
@@ -143,66 +145,7 @@ def _shard_residuals(cfg, x_loc, model_loc, axis, D, n):
                    f"unknown preprocessing {cfg.prep}")
 
 
-_SP_ROW_CODES = 8192  # target codes per packer row (the batch path's N)
-
-
-def _sp_row_split(K: int) -> int:
-    """Row count for the shard packer: rows of ~8192 codes, >= 1 lane
-    tile.  Large per-row trees spill VMEM; 8192-code rows match the
-    batch path's measured sweet spot."""
-    R = 128
-    while K // R > _SP_ROW_CODES and (K // (2 * R)) % 8 == 0:
-        R *= 2
-    return R
-
-
-def _pack_shard_stream(hi, lo, lens, worst_bits: int, cap_bits=None):
-    """Pack one shard's (K,) codes into a left-justified word stream.
-
-    TPU fast path: split the shard into lane-tile rows of ~8192 codes,
-    pack every row in the VMEM-resident Pallas kernel
-    (ops/pallas_pack.py — the same kernel the batch path uses, which
-    profiling showed is the difference between ~100%-of-encode-time XLA
-    packing and speed-of-light), then stitch the row streams with
-    log2(R) funnel-shift merge levels (bitpack.merge_streams_tree).
-    ``cap_bits`` entropy-clamps the row buffers exactly as in the batch
-    path — the clamp shrinks BOTH the pack tree and every merge level
-    (the dominant costs of the long-stream encode; round-4 profile).
-    Falls back to the XLA tree for shapes the kernel does not support
-    (or on CPU).  Returns (words, ok) — ok is False when any clamped
-    row overflowed (the caller re-encodes at full capacity).
-    """
-    import os
-
-    from ..ops.encode import _use_pallas
-    from ..ops.pallas_pack import pack_codes_tree_pallas
-
-    K = lens.shape[-1]
-    R = _sp_row_split(K)
-    interpret = os.environ.get("AIRS_SP_PACK_INTERPRET") == "1"
-    if K % R == 0 and (interpret or _use_pallas(R, K // R, worst_bits)):
-        from ..ops.pallas_pack import pallas_pack_supported
-
-        if pallas_pack_supported(R, K // R, worst_bits):
-            rows = lambda v: v.reshape(R, K // R)
-            if cap_bits is not None:
-                w_rows, bits_rows, ok_rows = pack_codes_tree_pallas(
-                    rows(hi), rows(lo), rows(lens), worst_bits,
-                    cap_bits=cap_bits, narrow=worst_bits > 32,
-                    interpret=interpret)
-                ok = jnp.all(ok_rows)
-            else:
-                w_rows, bits_rows = pack_codes_tree_pallas(
-                    rows(hi), rows(lo), rows(lens), worst_bits,
-                    interpret=interpret)
-                ok = jnp.bool_(True)
-            words, _ = bitpack.merge_streams_tree(w_rows, bits_rows)
-            return words, ok
-    words, _ = bitpack.pack_codes_tree(hi, lo, lens, worst_bits)
-    return words, jnp.bool_(True)
-
-
-def _shard_encode(x_loc, model_loc, cfg, axis, D, n, cap_bits=None):
+def _shard_encode(x_loc, model_loc, cfg, axis, D, n):
     """Per-shard: residuals -> codewords -> local pack -> global shift."""
     d = jax.lax.axis_index(axis)
     res = _shard_residuals(cfg, x_loc, model_loc, axis, D, n)
@@ -221,9 +164,8 @@ def _shard_encode(x_loc, model_loc, cfg, axis, D, n, cap_bits=None):
     offset = cfg.hdr_bits + before  # absolute payload bit offset
     total_payload_bits = jnp.sum(all_bits)
 
-    words, pack_ok = _pack_shard_stream(hi, lo, lens,
-                                        cfg.worst_bits_per_sample,
-                                        cap_bits=cap_bits)
+    words, _ = bitpack.pack_codes_tree(hi, lo, lens,
+                                       cfg.worst_bits_per_sample)
     # shift local stream right by r = offset % 32 onto the global word grid
     r = (offset % 32).astype(jnp.uint32)
     wprev = jnp.concatenate([jnp.zeros((1,), jnp.uint32), words[:-1]])
@@ -236,11 +178,10 @@ def _shard_encode(x_loc, model_loc, cfg, axis, D, n, cap_bits=None):
                      words[-1] << jnp.where(r == 0, jnp.uint32(0),
                                             jnp.uint32(32) - r))
     out_words = jnp.concatenate([shifted, tail[None]])
-    return out_words, offset // 32, local_bits, total_payload_bits, pack_ok
+    return out_words, offset // 32, local_bits, total_payload_bits
 
 
-def _sharded_encode_core(mesh: Mesh, cfg, n: int, needs_model: bool,
-                         cap_bits=None):
+def _sharded_encode_core(mesh: Mesh, cfg, n: int, needs_model: bool):
     """shard_map-wrapped per-shard encode (shared by both programs)."""
     (axis,) = mesh.axis_names
     D = mesh.devices.size
@@ -249,35 +190,25 @@ def _sharded_encode_core(mesh: Mesh, cfg, n: int, needs_model: bool,
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=specs,
-        out_specs=(P(axis, None), P(axis), P(axis), P(axis), P(axis)),
-        # pallas_call emits ShapeDtypeStructs without varying-mesh-axis
-        # annotations; skip the vma check (shardings are fully explicit
-        # here and byte-identity is asserted by tests)
-        check_vma=False)
+        out_specs=(P(axis, None), P(axis), P(axis), P(axis)))
     def run(x_sh, model_sh=None):
-        w, w0, lbits, tbits, ok = _shard_encode(x_sh, model_sh, cfg, axis,
-                                                D, n, cap_bits=cap_bits)
-        return w[None], w0[None], lbits[None], tbits[None], ok[None]
+        w, w0, lbits, tbits = _shard_encode(x_sh, model_sh, cfg, axis, D, n)
+        return w[None], w0[None], lbits[None], tbits[None]
 
     return run
 
 
 @functools.lru_cache(maxsize=64)
-def _sharded_encode_program(mesh: Mesh, cfg, n: int, needs_model: bool,
-                            cap_bits=None):
+def _sharded_encode_program(mesh: Mesh, cfg, n: int, needs_model: bool):
     """Build (and cache) the jitted shard_map encode program."""
-    return jax.jit(_sharded_encode_core(mesh, cfg, n, needs_model,
-                                        cap_bits))
+    return jax.jit(_sharded_encode_core(mesh, cfg, n, needs_model))
 
 
 @functools.lru_cache(maxsize=64)
-def _sp_frame_program(mesh: Mesh, cfg, n: int, needs_model: bool,
-                      cap_bits=None):
+def _sp_frame_program(mesh: Mesh, cfg, n: int, needs_model: bool):
     """Jitted program producing the COMPLETE frame word stream on device.
 
-    Round-3 verdict Weak #3: the measured SP number used to time only the
-    sharded packer, leaving the per-shard span OR-merge and the header
-    write as serial host Python.  Here the whole frame is produced by one
+    The whole frame is produced by one
     device program: shard encode -> scatter-merge of the shard spans onto
     the global word grid (overlapping boundary words carry disjoint bits,
     so the OR-merge is a scatter-add) -> closed-form device header words
@@ -285,25 +216,22 @@ def _sp_frame_program(mesh: Mesh, cfg, n: int, needs_model: bool,
     frame are the size fetch and the byte slice.
 
     Returns ``run(x, id_hi, id_lo, seq[, model]) -> (words, size_bytes,
-    payload_bits, ok)`` with ``words`` a worst-case-capacity u32 stream
+    payload_bits)`` with ``words`` a worst-case-capacity u32 stream
     whose first ``ceil(size_bytes/4)`` words are the frame (trailing
     checksum bytes NOT included — XXH32 of one stream is bit-serial, the
-    host splices it for cs=1 configs).  With ``cap_bits`` set, ok=False
-    means an entropy-clamped row overflowed and the frame words are
-    invalid — re-encode with the full-capacity program (sizes stay
-    exact either way).
+    host splices it for cs=1 configs).
     """
     from ..ops.encode import _header_words, worst_case_words
 
-    core = _sharded_encode_core(mesh, cfg, n, needs_model, cap_bits)
+    core = _sharded_encode_core(mesh, cfg, n, needs_model)
     W_cap = worst_case_words(cfg, n)
 
     @jax.jit
     def run(x, id_hi, id_lo, seq, model=None):
         if needs_model:
-            words, starts, _lbits, tbits, ok = core(x, model)
+            words, starts, _lbits, tbits = core(x, model)
         else:
-            words, starts, _lbits, tbits, ok = core(x)
+            words, starts, _lbits, tbits = core(x)
         payload_bits = tbits[0]
         bits = cfg.hdr_bits + payload_bits
         if cfg.checksum:
@@ -316,9 +244,7 @@ def _sp_frame_program(mesh: Mesh, cfg, n: int, needs_model: bool,
         # span merge: D contiguous spans at word offsets starts[d];
         # adjacent spans overlap in exactly one boundary word with
         # disjoint bits.  A fori of dynamic slice + OR + dynamic update
-        # keeps every step a bulk contiguous copy (a flat scatter-add
-        # over the same indices lowers to a scalarized scatter on TPU —
-        # measured 40x slower for a 2^21-sample stream).
+        # keeps every step a bulk contiguous copy.
         pad = jnp.zeros((Wl,), jnp.uint32)
 
         def merge(d, acc):
@@ -337,7 +263,7 @@ def _sp_frame_program(mesh: Mesh, cfg, n: int, needs_model: bool,
         # case) header word shares its low bits with the payload start —
         # disjoint bit ranges, so add == or
         out = out.at[: len(hdr)].add(jnp.stack(hdr))
-        return out, size, payload_bits, jnp.all(ok)
+        return out, size, payload_bits
 
     return run
 
@@ -377,26 +303,14 @@ def compress_long_stream(mesh: Mesh, params: CmpParams, samples_u16,
         raise CmpError(CmpErrorCode.PARAMS_INVALID,
                        "MODEL preprocessing requires model state")
 
-    from ..ops.encode import default_cap_bits
-
     x = jnp.asarray(x_np.view(np.int16), jnp.int32)
     id_hi = (identifier >> 24) & 0xFFFFFF
     id_lo = identifier & 0xFFFFFF
     m = (jnp.asarray(np.asarray(model, np.int16), jnp.int32)
          if needs_model else None)
-    # entropy-clamped first (the clamp shrinks the pack tree and every
-    # row-merge level); a clamp overflow re-encodes at full capacity —
-    # same transparent fallback as the batch path
-    for cap in (default_cap_bits(cfg), None):
-        run = _sp_frame_program(mesh, cfg, n, needs_model, cap)
-        if needs_model:
-            out_words, size_dev, _pb, ok = run(x, id_hi, id_lo,
-                                               sequence_number, m)
-        else:
-            out_words, size_dev, _pb, ok = run(x, id_hi, id_lo,
-                                               sequence_number)
-        if cap is None or bool(np.asarray(ok)):
-            break
+    run = _sp_frame_program(mesh, cfg, n, needs_model)
+    args = (x, id_hi, id_lo, sequence_number) + ((m,) if needs_model else ())
+    out_words, size_dev, _pb = run(*args)
 
     # the device program produced the complete frame (header included);
     # host work is the size fetch + byte slice (+ checksum splice: XXH32
@@ -421,7 +335,7 @@ def compress_long_stream(mesh: Mesh, params: CmpParams, samples_u16,
 # parallelism back OUTSIDE the format: a sidecar of per-chunk payload bit
 # lengths (4 bytes per 1024 samples ≈ 0.2% of the data) lets every chunk
 # start its cursor independently — the stream becomes a batch of chunk
-# lanes for the SAME lockstep Pallas decoder used for block batches.  The
+# lanes for the SAME lockstep decoder used for block batches.  The
 # frame stays format-pure; the sidecar is derivable from the samples (or
 # from one sequential decode) and is validated on use: every lane's end
 # position must land exactly on its chunk boundary.
@@ -447,9 +361,8 @@ def stream_chunk_index(params: CmpParams, samples_u16,
     Computed from the samples with one cheap device pass (preprocess +
     closed-form codeword lengths + chunk sums) — no packing, no decode.
     This recomputes lengths the encoder also derives internally, a
-    deliberate trade: the codeword-length pass is ~5% of encode time
-    (profiled: 0.14 ms per 2^21 samples vs the pack's dominant cost),
-    and keeping it standalone leaves the sharded encode program —
+    deliberate trade: the codeword-length pass is cheap next to the
+    pack, and keeping it standalone leaves the sharded encode program —
     and its compile cache — untouched, and also lets a sidecar be built
     for a stream whose frame came from anywhere (e.g. the host codec).
     """
@@ -489,13 +402,9 @@ def _sidecar_decode_device(dcfg, words, start, chunk: int, c_lane: int,
     r = (start & 31).astype(jnp.uint32)[:, None]
     # Window build as a ROW-granular gather: the stream reshaped into
     # 128-word rows, each chunk takes its aligned row run (an
-    # embedding-style whole-row gather TPU lowers to bulk copies), then
-    # a 7-level word barrel shift aligns the window.  Element-index
-    # gathers and vmapped dynamic_slice both scalarize INSIDE
-    # lax.while/fori loops (measured 2.4 ms/iter vs 0.12 ms/iter for a
-    # 2^21-sample stream — the bench times this under a fori loop, and
-    # pipelined callers will too).  Zero row padding gives zero-fill
-    # past the stream end.
+    # embedding-style whole-row gather), then a 7-level word barrel
+    # shift aligns the window.  Zero row padding gives zero-fill past
+    # the stream end.
     row = 128
     n_rows = (c_lane + row - 1) // row + 1
     pad = (-W) % row + (n_rows + 1) * row
@@ -618,7 +527,7 @@ def decompress_long_stream(frame: bytes, chunk_bits, model=None,
 #
 # compress_long_stream is one-shot: the whole stream must be resident
 # before the program runs, so a long acquisition pays transfer and
-# compute serially (round-4 verdict Weak #6).  This tier encodes the SAME
+# compute serially.  This tier encodes the SAME
 # single AIRSPACE block chunk by chunk with a device-resident carry (bit
 # offset, previous sample, output words), so chunk k+1's upload overlaps
 # chunk k's encode on real hardware and the stream never needs to exist
@@ -653,7 +562,7 @@ def _shard_residuals_chunk(cfg, x_loc, model_loc, axis, D, prev_last,
 
 
 def _shard_encode_chunk(x_loc, model_loc, cfg, axis, D, base_bits,
-                        prev_last, first, cap_bits=None):
+                        prev_last, first):
     """Chunk variant of :func:`_shard_encode`: the absolute payload bit
     offset continues from the traced cross-chunk carry ``base_bits``."""
     d = jax.lax.axis_index(axis)
@@ -675,9 +584,8 @@ def _shard_encode_chunk(x_loc, model_loc, cfg, axis, D, base_bits,
     offset = base_bits + before
     total_chunk_bits = jnp.sum(all_bits)
 
-    words, pack_ok = _pack_shard_stream(hi, lo, lens,
-                                        cfg.worst_bits_per_sample,
-                                        cap_bits=cap_bits)
+    words, _ = bitpack.pack_codes_tree(hi, lo, lens,
+                                       cfg.worst_bits_per_sample)
     r = (offset % 32).astype(jnp.uint32)
     wprev = jnp.concatenate([jnp.zeros((1,), jnp.uint32), words[:-1]])
     shift_hi = jnp.where(r == 0, jnp.uint32(0),
@@ -688,23 +596,18 @@ def _shard_encode_chunk(x_loc, model_loc, cfg, axis, D, base_bits,
                      words[-1] << jnp.where(r == 0, jnp.uint32(0),
                                             jnp.uint32(32) - r))
     out_words = jnp.concatenate([shifted, tail[None]])
-    return out_words, offset // 32, local_bits, total_chunk_bits, pack_ok
+    return out_words, offset // 32, local_bits, total_chunk_bits
 
 
 @functools.lru_cache(maxsize=64)
-def _sp_chunk_program(mesh: Mesh, cfg, chunk_n: int, needs_model: bool,
-                      cap_bits):
+def _sp_chunk_program(mesh: Mesh, cfg, chunk_n: int, needs_model: bool):
     """Jitted per-chunk step of the streaming long-stream encoder.
 
     ``run(out, carry_bits, prev_last, first, x[, model]) -> (out',
-    carry', prev', ok)``: encodes one chunk, OR-merges its word spans
-    into the accumulating frame buffer ``out`` at the carried bit
-    offset, and returns the advanced carry.  ``out`` is NOT donated:
-    jit is functional, so the caller's pre-call buffer reference is the
-    free restore point when an entropy-clamp overflow (ok=False,
-    detected one chunk later) forces a full-capacity re-encode — the
-    carry itself is exact regardless (code lengths don't depend on the
-    pack).  Everything stays on device; no host sync inside.
+    carry', prev')``: encodes one chunk, OR-merges its word spans into
+    the accumulating frame buffer ``out`` at the carried bit offset, and
+    returns the advanced carry.  Everything stays on device; no host
+    sync inside.
     """
     (axis,) = mesh.axis_names
     D = mesh.devices.size
@@ -715,23 +618,22 @@ def _sp_chunk_program(mesh: Mesh, cfg, chunk_n: int, needs_model: bool,
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=tuple(specs),
-        out_specs=(P(axis, None), P(axis), P(axis), P(axis), P(axis)),
+        out_specs=(P(axis, None), P(axis), P(axis), P(axis)),
         check_vma=False)
     def enc(x_sh, *rest):
         if needs_model:
             model_sh, base, prev, first = rest
         else:
             (base, prev, first), model_sh = rest, None
-        w, w0, lbits, tbits, ok = _shard_encode_chunk(
-            x_sh, model_sh, cfg, axis, D, base, prev, first,
-            cap_bits=cap_bits)
-        return w[None], w0[None], lbits[None], tbits[None], ok[None]
+        w, w0, lbits, tbits = _shard_encode_chunk(
+            x_sh, model_sh, cfg, axis, D, base, prev, first)
+        return w[None], w0[None], lbits[None], tbits[None]
 
     @jax.jit
     def run(out, carry_bits, prev_last, first, x, model=None):
         args = (x, model) if needs_model else (x,)
-        words, starts, _lbits, tbits, ok = enc(*args, carry_bits,
-                                               prev_last, first)
+        words, starts, _lbits, tbits = enc(*args, carry_bits, prev_last,
+                                           first)
         D_, Wl = words.shape
 
         def merge(d, acc):
@@ -740,14 +642,14 @@ def _sp_chunk_program(mesh: Mesh, cfg, chunk_n: int, needs_model: bool,
                 acc, seg | words[d], (starts[d],))
 
         out2 = jax.lax.fori_loop(0, D_, merge, out)
-        return out2, carry_bits + tbits[0], x[-1], jnp.all(ok)
+        return out2, carry_bits + tbits[0], x[-1]
 
     return run
 
 
 @functools.lru_cache(maxsize=64)
 def _sp_feed_many_program(mesh: Mesh, cfg, chunk_n: int, k_chunks: int,
-                          needs_model: bool, cap_bits):
+                          needs_model: bool):
     """K-chunk streaming step in ONE dispatch (a fori over the chunk
     step INSIDE the program).
 
@@ -768,15 +670,14 @@ def _sp_feed_many_program(mesh: Mesh, cfg, chunk_n: int, k_chunks: int,
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=tuple(specs),
-        out_specs=(P(), P(), P(), P()), check_vma=False)
+        out_specs=(P(), P(), P()), check_vma=False)
     def run_sh(out, carry_bits, prev_last, first, xs_sh, model_sh=None):
         def body(k, st):
-            acc, base, prev, ok_all = st
+            acc, base, prev = st
             x_loc = xs_sh[k]
             m_loc = model_sh[k] if needs_model else None
-            w, w0, _lbits, tbits, ok = _shard_encode_chunk(
-                x_loc, m_loc, cfg, axis, D, base, prev,
-                first & (k == 0), cap_bits=cap_bits)
+            w, w0, _lbits, tbits = _shard_encode_chunk(
+                x_loc, m_loc, cfg, axis, D, base, prev, first & (k == 0))
             words_all = jax.lax.all_gather(w, axis)    # (D, Wl)
             starts_all = jax.lax.all_gather(w0, axis)  # (D,)
             Wl = w.shape[0]
@@ -788,13 +689,10 @@ def _sp_feed_many_program(mesh: Mesh, cfg, chunk_n: int, k_chunks: int,
 
             acc2 = jax.lax.fori_loop(0, D, merge, acc)
             prev2 = jax.lax.all_gather(x_loc[-1], axis)[-1]
-            return (acc2, base + tbits, prev2,
-                    ok_all & jnp.all(jax.lax.all_gather(ok, axis)))
+            return acc2, base + tbits, prev2
 
-        out2, carry2, prev2, ok = jax.lax.fori_loop(
-            0, k_chunks, body,
-            (out, carry_bits, prev_last, jnp.bool_(True)))
-        return out2, carry2, prev2, ok
+        return jax.lax.fori_loop(0, k_chunks, body,
+                                 (out, carry_bits, prev_last))
 
     return jax.jit(run_sh)
 
@@ -810,14 +708,8 @@ class ChunkedLongStreamEncoder:
     frame buffer), so on real hardware chunk k+1's host->device transfer
     overlaps chunk k's encode, and no host ever holds the whole stream.
     The XXH32 trailer streams through the 16-byte host state
-    (utils/xxh32.XXH32State) chunk by chunk.
-
-    Entropy-clamp overflows are handled with a one-feed-deep deferred
-    commit: jit is functional, so the pre-feed frame buffer reference is
-    kept until the feed's ``ok`` flag is checked (at the NEXT feed or at
-    :meth:`finish`); an overflowed feed rolls back to that buffer and
-    re-encodes at full capacity — byte-exactness is never at risk
-    because the clamp only affects packed words, not sizes.
+    (utils/xxh32.XXH32State) chunk by chunk.  The feed loop is entirely
+    sync-free (pure enqueue).
 
     :meth:`feed_many` consumes a whole (K, chunk) buffer of chunks in
     ONE device dispatch (the per-chunk step runs in a fori loop inside
@@ -832,14 +724,7 @@ class ChunkedLongStreamEncoder:
 
     def __init__(self, mesh: Mesh, params: CmpParams, total_samples: int,
                  chunk_samples: int, identifier: int = 0,
-                 sequence_number: int = 0, secondary: bool = False,
-                 clamp: bool = True):
-        """``clamp=True`` (default) packs through the entropy-clamped
-        Pallas buffers — the cheaper device program — at the cost of one
-        deferred scalar ``ok`` readback per chunk (the commit check);
-        ``clamp=False`` packs at full capacity and the feed loop is
-        entirely sync-free (pure enqueue), which a latency-bound
-        streaming producer may prefer.  Output bytes are identical."""
+                 sequence_number: int = 0, secondary: bool = False):
         params.validate()
         self.mesh = mesh
         self.params = params
@@ -861,9 +746,8 @@ class ChunkedLongStreamEncoder:
         self.identifier = identifier
         self.sequence_number = sequence_number
         self._needs_model = cfg.prep == int(Preprocessing.MODEL)
-        from ..ops.encode import default_cap_bits, worst_case_words
+        from ..ops.encode import worst_case_words
 
-        self._cap = default_cap_bits(cfg) if clamp else None
         wb = cfg.worst_bits_per_sample
         # merge slack past the worst-case frame: the last chunk's spans
         # (shard payload + tail word) must stay in dynamic-slice bounds
@@ -879,32 +763,17 @@ class ChunkedLongStreamEncoder:
 
             self._csum = XXH32State(CHECKSUM_SEED)
         self._fed = 0
-        # deferred-commit slot: (ok, pre-feed out buffer + carry/prev/
-        # first, operands, many) — resolved at the next feed/finish
-        self._pending = None
 
-    def _run(self, cap, many, *args):
+    def _run(self, many, *args):
         if many:
             prog = _sp_feed_many_program(self.mesh, self.cfg, self.chunk,
                                          args[4].shape[0],
-                                         self._needs_model, cap)
+                                         self._needs_model)
         else:
             prog = _sp_chunk_program(self.mesh, self.cfg, self.chunk,
-                                     self._needs_model, cap)
-        return prog(*args)
-
-    def _resolve_pending(self) -> None:
-        if self._pending is None:
-            return
-        ok, pre_state, operands, many = self._pending
-        self._pending = None
-        if bool(np.asarray(ok)):
-            return
-        # clamp overflow: roll back to the pre-feed buffer (jit never
-        # mutated it — functional outputs) and re-encode this feed's
-        # chunks at full capacity from the saved pre-feed carry
-        res = self._run(None, many, *pre_state, *operands)
-        self._out, self._carry, self._prev, _ok = res
+                                     self._needs_model)
+        self._out, self._carry, self._prev = prog(*args)
+        self._first = jnp.asarray(False)
 
     def feed(self, chunk_u16, model_chunk=None) -> None:
         """Feed the next ``chunk_samples`` samples.
@@ -935,17 +804,12 @@ class ChunkedLongStreamEncoder:
         if self._needs_model and model_chunk is None:
             raise CmpError(CmpErrorCode.PARAMS_INVALID,
                            "MODEL preprocessing requires model chunks")
-        self._resolve_pending()
         operands = (x,)
         if self._needs_model:
             operands += (jnp.asarray(
                 np.asarray(model_chunk, np.int16), jnp.int32),)
-        pre_state = (self._out, self._carry, self._prev, self._first)
-        res = self._run(self._cap, False, *pre_state, *operands)
-        self._out, self._carry, self._prev, ok = res
-        self._first = jnp.asarray(False)
-        if self._cap is not None:
-            self._pending = (ok, pre_state, operands, False)
+        self._run(False, self._out, self._carry, self._prev, self._first,
+                  *operands)
         if self._csum is not None:
             if x_np is None:
                 x_np = np.asarray(x).astype(np.uint16)
@@ -958,9 +822,7 @@ class ChunkedLongStreamEncoder:
         Same semantics as K sequential :meth:`feed` calls at a fraction
         of the launch cost (the per-chunk step runs in a fori loop
         inside the program); accepts host u16 or device-resident arrays
-        like :meth:`feed`.  The entropy-clamp commit check covers the
-        whole call: if ANY chunk overflowed, the full K-chunk feed rolls
-        back and re-encodes at full capacity.
+        like :meth:`feed`.
         """
         if isinstance(chunks, jax.Array):
             v = chunks.astype(jnp.int32) & 0xFFFF
@@ -978,17 +840,12 @@ class ChunkedLongStreamEncoder:
         if self._needs_model and model_chunks is None:
             raise CmpError(CmpErrorCode.PARAMS_INVALID,
                            "MODEL preprocessing requires model chunks")
-        self._resolve_pending()
         operands = (xs,)
         if self._needs_model:
             operands += (jnp.asarray(
                 np.asarray(model_chunks, np.int16), jnp.int32),)
-        pre_state = (self._out, self._carry, self._prev, self._first)
-        res = self._run(self._cap, True, *pre_state, *operands)
-        self._out, self._carry, self._prev, ok = res
-        self._first = jnp.asarray(False)
-        if self._cap is not None:
-            self._pending = (ok, pre_state, operands, True)
+        self._run(True, self._out, self._carry, self._prev, self._first,
+                  *operands)
         if self._csum is not None:
             if xs_np is None:
                 xs_np = np.asarray(xs).astype(np.uint16)
@@ -1000,7 +857,6 @@ class ChunkedLongStreamEncoder:
         if self._fed != self.total:
             raise CmpError(CmpErrorCode.SRC_SIZE_WRONG,
                            f"fed {self._fed} of {self.total} samples")
-        self._resolve_pending()
         bits = int(np.asarray(self._carry))
         if self.cfg.checksum:
             total_bits = bits + (-bits) % 8 + 32

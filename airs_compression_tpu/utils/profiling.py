@@ -1,7 +1,7 @@
 """Tracing/profiling/observability utilities.
 
 The reference has no tracing beyond verbose logging (SURVEY §5); the
-TPU-native equivalents here are:
+equivalents here are:
 
 * :class:`StageTimer` — wall-clock stage timers with ``block_until_ready``
   barriers, accumulating per-stage totals and GB/s;

@@ -1,6 +1,6 @@
 """Device (batched) compress + decompress pipeline walkthrough.
 
-The library's TPU-native surface: `BatchCompressor` encodes B independent
+The library's batched device surface: `BatchCompressor` encodes B independent
 block chains per call on device; `BatchDecompressor` decodes them back,
 selecting every block's decode configuration from its own header — so
 uncompressed-fallback frames, mixed-phase batches, and adaptive streams

@@ -1,7 +1,7 @@
 """Distributed compression walkthrough: DP over a mesh + one long stream.
 
 The reference library is single-threaded ANSI C; this example shows the
-two scaling modes the TPU framework adds on top of the same bitstream
+two scaling modes the JAX framework adds on top of the same bitstream
 format (SURVEY.md §2.5):
 
 1. **Data parallelism** — AIRSPACE blocks are self-delimiting, so a batch
@@ -13,12 +13,12 @@ format (SURVEY.md §2.5):
    places every shard on the global bit grid, and the shards' word
    streams funnel-shift into a single format-exact payload.
 
-Runs on any JAX platform.  To try it without TPUs:
+Runs on any JAX platform (one or several GPUs).  To try it without GPUs:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/distributed_compression.py
 
-On a multi-host pod slice, call
+On several hosts, call
 ``airs_compression_tpu.parallel.mesh.multihost_initialize()`` first and
 shard the global batch with the same code.
 """

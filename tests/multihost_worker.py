@@ -9,7 +9,7 @@ multi-host code path the production deployment uses:
     -> global-mesh sharded device encode (parallel.dp.encode_blocks_sharded
        semantics via make_array_from_callback + jit with NamedSharding)
     -> per-process extraction of addressable output shards
-    -> cross-process size allgather (parallel.gather.allgather_sizes, DCN
+    -> cross-process size allgather (parallel.gather.allgather_sizes, host network
        analog) -> StreamManifest -> per-process shard files
     -> barrier -> process 0 splices the manifest into ONE stream, asserts
        byte-identity with the host codec (oracle-anchored) and round-trips

@@ -225,6 +225,39 @@ class TestAdaptivePipeline:
             np.testing.assert_array_equal(dec[:N], frames[b])
             np.testing.assert_array_equal(dec[N:], frames2[b])
 
+    def test_clamped_buffer_flags_fallback_that_does_not_fit(self):
+        """A fallback frame larger than an entropy-clamped buffer is
+        flagged for a full-capacity re-encode, never reported ok."""
+        import dataclasses
+
+        from airs_compression_tpu.ops.encode import (
+            clamped_frame_words,
+            encode_blocks_adaptive,
+            make_pass_config,
+        )
+
+        params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
+                           primary_encoder_type=EncoderType.GOLOMB_ZERO,
+                           primary_encoder_param=1,
+                           uncompressed_fallback_enabled=True)
+        cfg = make_pass_config(params, False, True)
+        fb_cfg = make_pass_config(dataclasses.replace(
+            params, primary_preprocessing=Preprocessing.NONE,
+            primary_encoder_type=0), False, True)
+        B, N = 2, 256
+        nw = clamped_frame_words(cfg, N, 8)
+        assert nw * 4 < 16 + 2 * N  # the uncompressed frame cannot fit
+        frames = np.empty((B, N), np.uint16)
+        frames[0] = 1000
+        frames[1] = np.random.default_rng(3).integers(0, 1 << 16, N)
+        x = jnp.asarray(frames.view(np.int16), jnp.int32)
+        z = jnp.zeros((B,), jnp.int32)
+        zu = jnp.zeros((B,), jnp.uint32)
+        _w, _s, fell, _g, ok = encode_blocks_adaptive(
+            cfg, fb_cfg, x, x, z, zu, zu, zu, nw, (1, 2), cap_bits=8)
+        np.testing.assert_array_equal(np.asarray(fell), [False, True])
+        np.testing.assert_array_equal(np.asarray(ok), [True, False])
+
     @pytest.mark.parametrize("enc_type,outlier", [
         (EncoderType.GOLOMB_ZERO, 0), (EncoderType.GOLOMB_MULTI, 60)])
     def test_adaptive_not_worse_than_reference_c(self, enc_type, outlier):

@@ -111,7 +111,7 @@ class TestChunkedParity:
 
 class TestCliChunkedRoute:
     def test_cli_large_file_chunked(self, tmp_path, monkeypatch):
-        """AIRS_TPU_CLI_CHUNKED=1 routes the CLI through the device path."""
+        """AIRS_CLI_CHUNKED=1 routes the CLI through the device path."""
         import subprocess
         import sys
 
@@ -121,9 +121,11 @@ class TestCliChunkedRoute:
         src.write_bytes(data.astype(">u2").tobytes())
         out = tmp_path / "big.air"
         restored = tmp_path / "restored.dat"
-        env = {"AIRS_TPU_CLI_CHUNKED": "1", "JAX_PLATFORMS": "cpu",
-               "PYTHONPATH": "/root/repo"}
         import os
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {"AIRS_CLI_CHUNKED": "1", "JAX_PLATFORMS": "cpu",
+               "PYTHONPATH": repo}
 
         env["PATH"] = os.environ.get("PATH", "")
         r = subprocess.run(
@@ -235,7 +237,9 @@ class TestChunkedDecompress:
         got = compress_chunked(PARAMS, data, chunk_samples=1024, batch=4)
         from airs_compression_tpu.models.chunked import decompress_chunked
 
-        monkeypatch.setenv("AIRS_TPU_XXH32", "xla")
+        from airs_compression_tpu.ops import routing
+
+        monkeypatch.setattr(routing, "checksum_path", lambda p, n: "xla")
         dec = decompress_chunked(got, batch=4)
         np.testing.assert_array_equal(dec, data)
         bad = bytearray(got)

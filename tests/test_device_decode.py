@@ -123,7 +123,7 @@ class TestHeaderDrivenDecode:
     """
 
     def test_fallback_frames_decode_exactly(self):
-        # round-2 verdict repro: noise frames with fallback enabled used
+        # regression: noise frames with fallback enabled used
         # to be silently misdecoded under the primary config
         params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
                            primary_encoder_type=EncoderType.GOLOMB_ZERO,
@@ -314,7 +314,7 @@ class TestHeaderDrivenDecode:
 
 
 class TestChecksumEnforcement:
-    """The batch tier enforces the XXH32 trailer (round-3 verdict Weak #1).
+    """The batch tier enforces the XXH32 trailer.
 
     The checksum bit is part of the block contract (reference
     lib/common/header.c:137-163, flag bit lib/cmp_header.h:40-44); the
@@ -332,7 +332,7 @@ class TestChecksumEnforcement:
                 & 0xFFFF).astype(np.uint16)
 
     def test_corrupt_trailer_raises(self):
-        """Round-3 verdict repro: flip the last byte of a checksummed
+        """Regression: flip the last byte of a checksummed
         frame -> host decode raises AND batch decode raises."""
         from airs_compression_tpu.engine.host import decode_block
         from airs_compression_tpu.format.errors import CmpError

@@ -184,9 +184,8 @@ class TestClampedOkContract:
     """The clamped-buffer ``ok`` flag must be honest on EVERY packer path.
 
     ``_assemble_frames`` truncates frames at ``n_words``; with an
-    entropy-clamped buffer the XLA tree packer (the path taken on CPU,
-    under AIRS_TPU_PACKER=xla, or for unsupported shapes) has no kernel
-    overflow detector, so ok must be derived from the exact frame size.
+    entropy-clamped buffer the XLA tree packer has no overflow detector,
+    so ok must be derived from the exact frame size.
     """
 
     def _cfg(self):
@@ -445,35 +444,29 @@ def test_compress_frames_packed_assemble_variants():
     np.testing.assert_array_equal(sizes2, dsz2)
     assert dev2 == ref2
 
-    # the Pallas ragged-concat assembly produces the identical stream
-    # (interpret mode on CPU; the boundary-word last-writer contract is
-    # exercised by the varied sizes above)
-    for frames_in, want in ((frames, ref), (mixed, ref2)):
-        set_timestamp_func(lambda: (0, 0))
-        try:
-            pal, _ = BatchCompressor(
-                params2 if frames_in is mixed else params, B, N) \
-                .compress_frames_packed(frames_in, assemble="pallas")
-        finally:
-            set_timestamp_func(None)
-        assert pal == want
+    # the explicit host gather is the same stream as the default
+    set_timestamp_func(lambda: (0, 0))
+    try:
+        host2, _ = BatchCompressor(params2, B, N) \
+            .compress_frames_packed(mixed, assemble="host")
+    finally:
+        set_timestamp_func(None)
+    assert host2 == ref2
+    with pytest.raises(ValueError):
+        BatchCompressor(params, B, N).compress_frames_packed(
+            frames, assemble="pallas")
 
 
 def test_pallas_assembly_randomized_boundaries():
-    """The ragged-concat kernel (ops/pallas_assemble.py) reproduces a
-    plain byte concatenation for arbitrary frame contents and sizes —
-    every byte alignment (offs % 4), every in-window lane offset class,
-    non-multiple-of-8 batch counts, and extreme size variance.  Frames
-    are synthetic random bytes (>= 4 B each, one word — AIRSPACE frames
-    are >= 16 B), driven through the kernel directly in interpret mode;
-    the hardware-compiled path is gated in bench.py against the host
-    gather at B=512."""
+    """The device stream assembly (funnel-shift merge tree,
+    models/stream._pack_stream_device) reproduces a plain byte
+    concatenation for arbitrary frame contents and sizes — every byte
+    alignment (offs % 4), non-power-of-two batch counts, and extreme
+    size variance.  Frames are synthetic random bytes (>= 4 B each, one
+    word — AIRSPACE frames are >= 16 B)."""
     import sys
 
-    from airs_compression_tpu.ops.pallas_assemble import (
-        assemble_stream_pallas,
-        stream_capacity_words,
-    )
+    from airs_compression_tpu.models.stream import _pack_stream_device
 
     rng = np.random.default_rng(0xA55E)
     little = sys.byteorder == "little"
@@ -490,11 +483,8 @@ def test_pallas_assembly_randomized_boundaries():
         words_be = rows.reshape(B, W, 4).astype(np.uint32)
         words_be = ((words_be[..., 0] << 24) | (words_be[..., 1] << 16)
                     | (words_be[..., 2] << 8) | words_be[..., 3])
-        out = assemble_stream_pallas(
-            jnp.asarray(words_be, jnp.uint32),
-            jnp.asarray(sizes, jnp.int32),
-            stream_capacity_words(len(want), W),
-            interpret=True, swap=little)
+        out = _pack_stream_device(jnp.asarray(words_be, jnp.uint32),
+                                  jnp.asarray(sizes, jnp.int32), little)
         got = np.ascontiguousarray(
             np.asarray(out[: (len(want) + 3) // 4])) \
             .view(np.uint8)[: len(want)].tobytes()

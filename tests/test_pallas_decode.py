@@ -1,9 +1,9 @@
-"""Pallas slab-pyramid decoder parity (interpreter mode on CPU).
+"""Triton-route decoder parity (Pallas interpreter mode on CPU).
 
-The Pallas decoder (ops/pallas_decode.py) must reproduce the XLA scan
+The GPU decoder (ops/pallas_decode.py) must reproduce the XLA scan
 decoder (ops/decode.py) bit-for-bit — samples and end bit positions — and
-round-trip frames produced by the device encoder.  On hardware it is the
-default path for batches >= 1024 blocks.
+round-trip frames produced by the device encoder.  On the GPU it is the
+path for every batch.
 """
 
 import numpy as np
@@ -22,9 +22,9 @@ from airs_compression_tpu.ops.encode import (
     make_pass_config,
     worst_case_words,
 )
-from airs_compression_tpu.ops.pallas_decode import decode_blocks_pallas
+from airs_compression_tpu.ops.pallas_decode import LANES, decode_blocks_triton
 
-B, N = 1024, 64  # minimum tile; small N keeps interpreter mode fast
+B, N = 2 * LANES, 64  # two programs; small N keeps interpreter mode fast
 
 
 CONFIGS = [
@@ -55,7 +55,7 @@ def test_matches_xla_decoder_and_roundtrips(params):
     words, _ = _encode_one_pass(cfg, x, x, z, zu, zu, zu, nw)
 
     s_ref, e_ref = decode_blocks_device(cfg, words, x, N)
-    s_pal, e_pal = decode_blocks_pallas(cfg, words, x, N, interpret=True)
+    s_pal, e_pal = decode_blocks_triton(cfg, words, x, N, interpret=True)
     np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pal))
     np.testing.assert_array_equal(np.asarray(e_ref), np.asarray(e_pal))
     np.testing.assert_array_equal(np.asarray(s_pal), np.asarray(x))
@@ -63,7 +63,7 @@ def test_matches_xla_decoder_and_roundtrips(params):
 
 def test_non_tile_batch_is_padded_internally():
     """Any B >= 1 is accepted; padding rows must not disturb real rows."""
-    Bs = 100  # not a multiple of the 1024-block tile
+    Bs = LANES + 5  # not a multiple of the program's lane group
     params = CONFIGS[0]
     rng = np.random.default_rng(5)
     cfg = make_pass_config(params, False, True)
@@ -76,7 +76,7 @@ def test_non_tile_batch_is_padded_internally():
     words, _ = _encode_one_pass(cfg, x, x, z, zu, zu, zu, nw)
 
     s_ref, e_ref = decode_blocks_device(cfg, words, x, N)
-    s_pal, e_pal = decode_blocks_pallas(cfg, words, x, N, interpret=True)
+    s_pal, e_pal = decode_blocks_triton(cfg, words, x, N, interpret=True)
     assert s_pal.shape == (Bs, N) and e_pal.shape == (Bs,)
     np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pal))
     np.testing.assert_array_equal(np.asarray(e_ref), np.asarray(e_pal))
@@ -133,39 +133,60 @@ def test_dynamic_per_lane_params_match_xla(enc):
     o_dyn = jnp.asarray(o_np)
     s_ref, e_ref = decode_blocks_device(dcfg, words, x, N,
                                         g_dyn=g_dyn, outlier_dyn=o_dyn)
-    s_pal, e_pal = decode_blocks_pallas(dcfg, words, x, N, interpret=True,
+    s_pal, e_pal = decode_blocks_triton(dcfg, words, x, N, interpret=True,
                                         g_dyn=g_dyn, outlier_dyn=o_dyn)
     np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pal))
     np.testing.assert_array_equal(np.asarray(e_ref), np.asarray(e_pal))
     np.testing.assert_array_equal(np.asarray(s_pal), np.asarray(x))
 
 
-def test_half_tile_instantiation_matches_full():
-    """sub=4 (512 blocks/tile) decodes bit-identically to sub=8.
+def test_garbage_words_match_xla_exactly():
+    """Malformed input: random words decode to the SAME garbage, end
+    positions and poison flags as the XLA scan (shared decode math,
+    clipped word indices), so callers reject identically on both."""
+    from airs_compression_tpu.ops.decode import BAD_CODE_POISON_BITS
 
-    The half tile exists for small batches; whether it is FASTER is a
-    hardware question (BASELINE.md: it is not — Mosaic pads 4-sublane
-    vregs), but it must always be exact.
-    """
-    params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
-                       primary_encoder_type=EncoderType.GOLOMB_ZERO,
-                       primary_encoder_param=4)
+    rng = np.random.default_rng(77)
+    for params in CONFIGS[:2]:
+        cfg = make_pass_config(params, False, True)
+        words = jnp.asarray(rng.integers(0, 1 << 32, (LANES + 3, 24),
+                                         dtype=np.uint64).astype(np.uint32))
+        words = words.at[::4, 6:].set(0xFFFFFFFF)  # over-long unary runs
+        model = jnp.zeros((LANES + 3, N), jnp.int32)
+        s_ref, e_ref = decode_blocks_device(cfg, words, model, N)
+        s_k, e_k = decode_blocks_triton(cfg, words, model, N,
+                                        interpret=True)
+        np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_k))
+        np.testing.assert_array_equal(np.asarray(e_ref), np.asarray(e_k))
+        assert (np.asarray(e_k) >= BAD_CODE_POISON_BITS).any()
+
+
+def _lower_for_cuda(fn, *specs):
+    """MLIR of ``fn`` exported for CUDA: runs the Pallas -> Triton IR
+    lowering on the CPU (compiling the IR to PTX needs the card)."""
+    import jax
+    from jax import export
+
+    exp = export.export(
+        jax.jit(fn), platforms=("cuda",),
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(*specs)
+    return exp.mlir_module()
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_decoder_lowers_for_cuda(dynamic):
+    """The kernel lowers to exactly one Triton call at a real width."""
+    import jax
+
+    S = jax.ShapeDtypeStruct
+    params = CONFIGS[1] if dynamic else CONFIGS[0]
     cfg = make_pass_config(params, False, True)
-    Bh = 512
-    rng = np.random.default_rng(31)
-    frames = ((1100 + rng.normal(0, 5, (Bh, N))).astype(np.int64)
-              & 0xFFFF).astype(np.uint16)
-    x = jnp.asarray(frames.view(np.int16), jnp.int32)
-    n_words = worst_case_words(cfg, N)
-    zb = jnp.zeros((Bh,), jnp.uint32)
-    words, sizes = _encode_one_pass(cfg, x, x, zb.astype(jnp.int32), zb,
-                                    zb, zb, n_words)
-    model = jnp.zeros((Bh, N), jnp.int32)
-    s8, e8 = decode_blocks_pallas(cfg, words, model, N, interpret=True,
-                                  sub=8)
-    s4, e4 = decode_blocks_pallas(cfg, words, model, N, interpret=True,
-                                  sub=4)
-    np.testing.assert_array_equal(np.asarray(s4), np.asarray(s8))
-    np.testing.assert_array_equal(np.asarray(e4), np.asarray(e8))
-    np.testing.assert_array_equal(
-        np.asarray(s8).astype(np.int32).astype(np.uint16), frames)
+    Bc, Nc = 512, 8192
+    specs = [S((Bc, 4096), jnp.uint32), S((Bc, Nc), jnp.int32)]
+    if dynamic:
+        specs += [S((Bc,), jnp.uint32), S((Bc,), jnp.uint32)]
+    mlir = _lower_for_cuda(
+        lambda w, m, *par: decode_blocks_triton(cfg, w, m, Nc, *par), *specs)
+    assert mlir.count("__gpu$xla.gpu.triton") == 1
+    assert 'name = "airs_decode"' in mlir

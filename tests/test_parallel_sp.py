@@ -234,49 +234,10 @@ class TestLongStreamChains:
         assert hdrs[1].preprocessing == int(Preprocessing.NONE)
 
 
-def test_sp_pallas_pack_path_bit_identical(monkeypatch):
-    """The SP shard packer's Pallas fast path (row split + stream merge)
-    must produce the same frame as the XLA tree path."""
-    import jax
-    from jax.sharding import Mesh
-
-    from airs_compression_tpu.format.params import (
-        CmpParams,
-        EncoderType,
-        Preprocessing,
-    )
-    from airs_compression_tpu.parallel.sp import (
-        _sharded_encode_program,
-        _sp_frame_program,
-        compress_long_stream,
-    )
-
-    params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
-                       primary_encoder_type=EncoderType.GOLOMB_ZERO,
-                       primary_encoder_param=4)
-    n = 4096 * 4  # per-shard K = 4096 on a 4-device mesh (8*512: supported)
-    rng = np.random.default_rng(13)
-    data = (1100 + rng.normal(0, 6, n)).astype(np.int64).astype(np.uint16)
-    mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
-
-    monkeypatch.delenv("AIRS_SP_PACK_INTERPRET", raising=False)
-    _sharded_encode_program.cache_clear()
-    _sp_frame_program.cache_clear()
-    ref = compress_long_stream(mesh, params, data, identifier=7)
-    monkeypatch.setenv("AIRS_SP_PACK_INTERPRET", "1")
-    _sharded_encode_program.cache_clear()
-    _sp_frame_program.cache_clear()
-    got = compress_long_stream(mesh, params, data, identifier=7)
-    _sharded_encode_program.cache_clear()
-    _sp_frame_program.cache_clear()
-    assert got == ref
-
-
-def test_sp_clamp_overflow_reencodes_full_capacity(monkeypatch):
-    """Noise data overflows the entropy-clamped SP pack; the transparent
-    full-capacity re-encode must still produce host-identical bytes
-    (interpret-mode Pallas rows so the clamped path actually runs on
-    CPU)."""
+def test_sp_clamp_overflow_reencodes_full_capacity():
+    """Incompressible noise (the data an entropy clamp would overflow)
+    through the sharded packer must still produce host-identical bytes:
+    the long-stream encoder packs at full capacity."""
     import jax
     from jax.sharding import Mesh
 
@@ -289,10 +250,7 @@ def test_sp_clamp_overflow_reencodes_full_capacity(monkeypatch):
         EncoderType,
         Preprocessing,
     )
-    from airs_compression_tpu.parallel.sp import (
-        _sp_frame_program,
-        compress_long_stream,
-    )
+    from airs_compression_tpu.parallel.sp import compress_long_stream
 
     params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
                        primary_encoder_type=EncoderType.GOLOMB_ZERO,
@@ -301,10 +259,7 @@ def test_sp_clamp_overflow_reencodes_full_capacity(monkeypatch):
     rng = np.random.default_rng(14)
     data = rng.integers(0, 1 << 16, n).astype(np.uint16)  # incompressible
     mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
-    monkeypatch.setenv("AIRS_SP_PACK_INTERPRET", "1")
-    _sp_frame_program.cache_clear()
     got = compress_long_stream(mesh, params, data, identifier=3)
-    _sp_frame_program.cache_clear()
     set_timestamp_func(lambda: (0, 0))
     try:
         ref = CmpContext(params).compress_u16(data)
@@ -471,8 +426,8 @@ class TestChunkedStreamingEncode:
         assert enc.finish() == ref
 
     def test_chunked_clamp_overflow_restores(self):
-        """A chunk that overflows the entropy clamp is re-encoded at full
-        capacity via the deferred-commit restore — bytes unchanged."""
+        """A full-range noise chunk in the middle of a smooth stream
+        (the worst case for any entropy budget) — bytes unchanged."""
         from airs_compression_tpu.format.params import CmpParams
         from airs_compression_tpu.parallel.sp import (
             ChunkedLongStreamEncoder,
@@ -487,7 +442,7 @@ class TestChunkedStreamingEncode:
         rng = np.random.default_rng(32)
         data = ((1100 + rng.normal(0, 3, n)).astype(np.int64)
                 & 0xFFFF).astype(np.uint16)
-        # chunk 1 is full-range noise: overflows g=1's clamp for certain
+        # chunk 1 is full-range noise: g=1 codes at their widest
         data[chunk:2 * chunk] = rng.integers(0, 1 << 16, chunk,
                                              dtype=np.uint16)
         ref = compress_long_stream(mesh, params, data, identifier=5)
@@ -497,8 +452,8 @@ class TestChunkedStreamingEncode:
         assert enc.finish() == ref
 
     def test_chunked_sync_free_and_device_feed(self):
-        """clamp=False (sync-free feeds) and device-resident chunks
-        produce the identical frame."""
+        """Sync-free feeds of device-resident chunks produce the
+        identical frame."""
         import jax.numpy as jnp
 
         from airs_compression_tpu.format.params import CmpParams
@@ -517,7 +472,7 @@ class TestChunkedStreamingEncode:
                 & 0xFFFF).astype(np.uint16)
         ref = compress_long_stream(mesh, params, data, identifier=3)
         enc = ChunkedLongStreamEncoder(mesh, params, n, chunk,
-                                       identifier=3, clamp=False)
+                                       identifier=3)
         chunks_dev = jnp.asarray(data.reshape(-1, chunk).astype(np.int32))
         for k in range(n // chunk):
             enc.feed(chunks_dev[k])

@@ -6,9 +6,10 @@ import pytest
 import jax.numpy as jnp
 
 from airs_compression_tpu.ops.xxh32_device import (
-    pallas_xxh32_supported,
+    LANES,
+    triton_xxh32_supported,
     xxh32_blocks,
-    xxh32_blocks_pallas,
+    xxh32_blocks_triton,
 )
 from airs_compression_tpu.utils.xxh32 import cmp_checksum
 
@@ -45,27 +46,32 @@ def test_xla_seed_zero():
 
 
 @pytest.mark.parametrize("B,N", [(1024, 8), (1024, 64), (100, 256),
-                                 (2048, 2048)])
+                                 (2048, 2048), (3, 2048)])
 def test_pallas_matches_host(B, N):
-    assert pallas_xxh32_supported(N)
+    """Triton-route kernel (interpret mode): whole lane groups, a ragged
+    last group (100 and 3 are not multiples of LANES), one stripe, and
+    an unrolled stripe loop."""
+    assert 100 % LANES and 3 < LANES
+    assert triton_xxh32_supported(N)
     rng = np.random.default_rng(B + N)
     x_np = rng.integers(0, 1 << 16, (B, N)).astype(np.uint16)
-    got = np.asarray(xxh32_blocks_pallas(jnp.asarray(x_np, jnp.int32),
+    got = np.asarray(xxh32_blocks_triton(jnp.asarray(x_np, jnp.int32),
                                          interpret=True))
     np.testing.assert_array_equal(got, _ref(x_np))
 
 
 def test_pallas_support_predicate():
-    assert not pallas_xxh32_supported(4)
-    assert not pallas_xxh32_supported(12)
-    assert pallas_xxh32_supported(8192)
+    assert not triton_xxh32_supported(4)
+    assert not triton_xxh32_supported(12)
+    assert triton_xxh32_supported(8192)
 
 
 def test_batch_compressor_device_checksum_path(monkeypatch):
-    """AIRS_TPU_XXH32=xla forces the device checksum inside the encoder;
-    frames must stay byte-identical to the host-checksum path."""
+    """Routing the checksum to the XLA device scan inside the encoder
+    keeps frames byte-identical to the host-checksum path."""
     from airs_compression_tpu import CmpParams, EncoderType, Preprocessing
     from airs_compression_tpu.models.stream import BatchCompressor
+    from airs_compression_tpu.ops import routing
 
     params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
                        primary_encoder_type=EncoderType.GOLOMB_ZERO,
@@ -78,10 +84,25 @@ def test_batch_compressor_device_checksum_path(monkeypatch):
 
     set_timestamp_func(lambda: (0, 0))
     try:
-        monkeypatch.delenv("AIRS_TPU_XXH32", raising=False)
         ref = BatchCompressor(params, 4, 128).compress_frames(frames)
-        monkeypatch.setenv("AIRS_TPU_XXH32", "xla")
+        monkeypatch.setattr(routing, "checksum_path", lambda p, n: "xla")
         got = BatchCompressor(params, 4, 128).compress_frames(frames)
     finally:
         set_timestamp_func(None)
     assert got == ref
+
+
+def test_kernel_lowers_for_cuda():
+    """Pallas -> Triton IR lowering of the checksum kernel at a real
+    width, on the CPU (compiling the IR needs the card)."""
+    import jax
+    from jax import export
+
+    exp = export.export(
+        jax.jit(xxh32_blocks_triton), platforms=("cuda",),
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(
+        jax.ShapeDtypeStruct((512, 8192), jnp.int32))
+    mlir = exp.mlir_module()
+    assert mlir.count("__gpu$xla.gpu.triton") == 1
+    assert 'name = "airs_xxh32"' in mlir

@@ -39,9 +39,8 @@ MODULES = [
     "airs_compression_tpu.ops.preprocess",
     "airs_compression_tpu.ops.bitpack",
     "airs_compression_tpu.ops.adapt",
-    "airs_compression_tpu.ops.pallas_pack",
     "airs_compression_tpu.ops.pallas_decode",
-    "airs_compression_tpu.ops.pallas_assemble",
+    "airs_compression_tpu.ops.routing",
     "airs_compression_tpu.ops.xxh32_device",
     "airs_compression_tpu.parallel.dp",
     "airs_compression_tpu.parallel.sp",

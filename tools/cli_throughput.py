@@ -1,7 +1,6 @@
 """Measure the CLI's chunked device path vs the host codec on a big file.
 
-VERDICT round-1 weak item: "the CLI never touches the TPU".  The CLI now
-routes any file beyond the single-block format limit (16 MiB packed)
+The CLI routes any file beyond the single-block format limit (16 MiB packed)
 through models/chunked.compress_chunked -> BatchCompressor on the device.
 This harness times that path against the pure host codec on the same
 data and asserts the outputs are equivalent streams (byte-identical when
@@ -14,15 +13,15 @@ import pathlib
 import sys
 import time
 
+import jax
 import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-import jax
+from airs_compression_tpu.utils.jaxcache import configure_compile_cache
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+configure_compile_cache()
 
 from airs_compression_tpu import CmpContext, CmpParams, EncoderType, Preprocessing
 from airs_compression_tpu import set_timestamp_func

@@ -8,7 +8,7 @@ every point (sharded rows must equal the single-device encode).
 On the CPU backend with --xla_force_host_platform_device_count=8 the
 "devices" share the host's physical cores, so the curve measures the
 sharded path's overhead and correctness rather than hardware speedup —
-the real curve needs a multi-chip TPU (same code, bigger mesh).  Run:
+the real curve needs several GPUs (same code, bigger mesh).  Run:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/dp_scaling.py
@@ -85,8 +85,7 @@ def measure(mesh, cfg, n_words, B, N, frames_i32, reps=9):
     Operands are placed once (device-resident, the steady-state pipeline
     pattern — parallel/dp.place_encode_operands); the timed region is
     the sharded encode program only.  Per-call ``device_put`` placement
-    used to dominate the curve and read as a fake scaling cliff
-    (round-3 verdict Weak #4).
+    used to dominate the curve and read as a fake scaling cliff.
     """
     zb = np.zeros((B,), np.int32)
     zu = np.zeros((B,), np.uint32)
@@ -176,7 +175,7 @@ def main():
     for r in rows_fixed:
         r["overhead_pct"] = round(100.0 * (r["ms"] - tf) / tf, 1)
 
-    # Decomposition (round-4 verdict Weak #4): on shared host cores the
+    # Decomposition: on shared host cores the
     # weak curve confounds core oversubscription with sharded-program
     # overhead.  Separate the two mechanistically:
     #  * the compiled sharded module contains NO collectives (counted

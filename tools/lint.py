@@ -42,8 +42,8 @@ MAX_COLS = 100
 # Files whose top-of-file sys.path / environment setup legitimately
 # precedes the package imports (kept in sync with the ruff
 # per-file-ignores for E402 in pyproject.toml).
-E402_EXEMPT = ("bench.py", "__graft_entry__.py", "tools/", "tests/",
-               "examples/")
+E402_EXEMPT = ("bench.py", "chip_smoke.py", "__graft_entry__.py", "tools/",
+               "tests/", "examples/")
 
 # ruff's default dummy-variable pattern: underscore-led locals are
 # intentionally unused
@@ -60,6 +60,7 @@ TARGETS = [
     "tools",
     "examples",
     "bench.py",
+    "chip_smoke.py",
     "__graft_entry__.py",
 ]
 
